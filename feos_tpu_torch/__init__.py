@@ -9,8 +9,10 @@ gradients with respect to all 8 parameters of every row.
 * :func:`phi_d2` -- the hand-written CUDA kernel behind every phi
   evaluation of the VLE solve (its plain PyTorch version on CPU tensors).
 
-Every function takes its device from its tensors or from an explicit
-``device`` argument.  The package imports neither jax nor ``feos_tpu``.
+Every function takes its device from its tensors or from a ``device``
+argument, which defaults to ``"cuda"``: the entry points run on the card
+unless the caller asks for the CPU.  The package imports neither jax nor
+``feos_tpu``.
 """
 
 from . import units

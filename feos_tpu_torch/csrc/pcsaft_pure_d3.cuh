@@ -1,16 +1,34 @@
 // Pure-component PC-SAFT residual Helmholtz energy density phi = A/(kB T V)
-// and its first two density derivatives, for one (row, density) element.
+// and its first two density derivatives, as a row stage and a density stage.
 //
-// Written once for both compilers: nvcc builds it into the phi_d2 kernel
+// Written once for both compilers: nvcc builds it into the phi_d2 kernels
 // (phi_d2.cu), and a host compiler builds the same arithmetic for the CPU
-// tests, where the CUDA qualifiers are defined empty.  The math follows
-// feos_tpu/models/pcsaft_pure.py::precompute_pure and phi_pure_pre term for
-// term: hard sphere, hard chain, dispersion, PCP-SAFT dipole (scale-safe
-// Pade) and the closed-form 2-site association.
+// tests (phi_d2_host.cpp), where the CUDA qualifiers are defined empty.  The
+// math follows feos_tpu/models/pcsaft_pure.py::precompute_pure and
+// phi_pure_pre term for term: hard sphere, hard chain, dispersion, PCP-SAFT
+// dipole (scale-safe Pade) and the closed-form 2-site association.
 //
-// Derivatives ride a second-order dual number (value, d/drho, d2/drho2)
-// seeded with drho = 1, the counterpart of the nested jvp of
-// feos_tpu/ops/derivatives.py::value_and_2derivs.
+// * Row stage: row_consts() computes everything that does not depend on
+//   density (feos_tpu's PurePre, field for field; 2 exp a row).
+// * Density stage: powers() computes the packing-fraction powers and
+//   reciprocals the terms share, each Helmholtz term is its own function of
+//   (RowConsts, Powers), and phi_d3() adds them.  Every shared reciprocal is
+//   taken once: 1/(1-eta), 1/(2-eta), the C1 denominator, the Pade
+//   denominator (J1 multiplied through, which removes the J2/J1 division),
+//   1/sqrt and the two association roots; the log derivatives reuse them.
+//   phi_d3() skips the dipole term of rows with mu = 0 and the association
+//   term of rows with kappa_ab (exp(eps_ab/T) - 1) = 0, which are exactly
+//   zero there, derivatives included; rows with na = nb take one
+//   association root for both sites.
+//
+// Derivatives ride a second-order Taylor number D3 = (f, f', f''/2) in the
+// density, the counterpart of the nested jvp of
+// feos_tpu/ops/derivatives.py::value_and_2derivs: keeping f''/2 rather than
+// f'' drops the factor 2 from every product and chain rule.  The density
+// itself is (rho, 1, 0), and the products with it are written out.
+//
+// The scalar type is `real`: double, unless FEOS_REAL names another type
+// before this header is included (phi_d2_ops.cpp counts the operations so).
 #pragma once
 
 #include <math.h>
@@ -22,53 +40,78 @@
 #define FEOS_HD inline
 #endif
 
+#ifndef FEOS_REAL
+#define FEOS_REAL double
+#endif
+
 namespace feos {
+
+using real = FEOS_REAL;
 
 constexpr double kPi = 3.14159265358979323846;
 constexpr double kMu2Factor = 1e-19 / 1.380649e-23;  // units.MU2_FACTOR
 
+// Taylor coefficients of f(rho + h) = re + v1 h + v2 h^2 + O(h^3):
+// v1 = f', v2 = f''/2.
 struct D3 {
-    double re, v1, v2;
+    real re, v1, v2;
 };
 
-FEOS_HD D3 mk(double re) { return {re, 0.0, 0.0}; }
+FEOS_HD D3 mk(real re) { return {re, 0.0, 0.0}; }
 FEOS_HD D3 operator+(D3 a, D3 b) { return {a.re + b.re, a.v1 + b.v1, a.v2 + b.v2}; }
-FEOS_HD D3 operator+(D3 a, double b) { return {a.re + b, a.v1, a.v2}; }
-FEOS_HD D3 operator+(double a, D3 b) { return {a + b.re, b.v1, b.v2}; }
-FEOS_HD D3 operator-(D3 a) { return {-a.re, -a.v1, -a.v2}; }
+FEOS_HD D3 operator+(D3 a, real b) { return {a.re + b, a.v1, a.v2}; }
+FEOS_HD D3 operator+(real a, D3 b) { return {a + b.re, b.v1, b.v2}; }
 FEOS_HD D3 operator-(D3 a, D3 b) { return {a.re - b.re, a.v1 - b.v1, a.v2 - b.v2}; }
-FEOS_HD D3 operator-(double a, D3 b) { return {a - b.re, -b.v1, -b.v2}; }
-FEOS_HD D3 operator-(D3 a, double b) { return {a.re - b, a.v1, a.v2}; }
+FEOS_HD D3 operator-(real a, D3 b) { return {a - b.re, -b.v1, -b.v2}; }
 FEOS_HD D3 operator*(D3 a, D3 b) {
     return {a.re * b.re, a.v1 * b.re + a.re * b.v1,
-            a.v2 * b.re + 2.0 * a.v1 * b.v1 + a.re * b.v2};
+            a.v2 * b.re + a.v1 * b.v1 + a.re * b.v2};
 }
-FEOS_HD D3 operator*(D3 a, double b) { return {a.re * b, a.v1 * b, a.v2 * b}; }
-FEOS_HD D3 operator*(double a, D3 b) { return {a * b.re, a * b.v1, a * b.v2}; }
-// f(x) from f0 = f(x.re), f1 = f'(x.re), f2 = f''(x.re)
-FEOS_HD D3 chain(D3 x, double f0, double f1, double f2) {
-    return {f0, f1 * x.v1, f2 * x.v1 * x.v1 + f1 * x.v2};
+FEOS_HD D3 operator*(D3 a, real b) { return {a.re * b, a.v1 * b, a.v2 * b}; }
+FEOS_HD D3 operator*(real a, D3 b) { return {a * b.re, a * b.v1, a * b.v2}; }
+// f(x) from f0 = f(x.re), f1 = f'(x.re), h2 = f''(x.re)/2
+FEOS_HD D3 chain(D3 x, real f0, real f1, real h2) {
+    return {f0, f1 * x.v1, h2 * x.v1 * x.v1 + f1 * x.v2};
 }
-FEOS_HD D3 recip(D3 x) {
-    const double r = 1.0 / x.re;
-    return chain(x, r, -r * r, 2.0 * r * r * r);
+// 1/x, given r = 1/x.re
+FEOS_HD D3 inv(D3 x, real r) {
+    const real r2 = r * r;
+    return chain(x, r, -r2, r2 * r);
 }
-FEOS_HD D3 operator/(D3 a, D3 b) { return a * recip(b); }
-FEOS_HD D3 operator/(D3 a, double b) { return {a.re / b, a.v1 / b, a.v2 / b}; }
-FEOS_HD D3 operator/(double a, D3 b) { return a * recip(b); }
-FEOS_HD D3 dlog(D3 x) {
-    const double r = 1.0 / x.re;
-    return chain(x, log(x.re), r, -r * r);
-}
+FEOS_HD D3 recip(D3 x) { return inv(x, 1.0 / x.re); }
+// log(x), given r = 1/x.re
+FEOS_HD D3 dlog(D3 x, real r) { return chain(x, log(x.re), r, -0.5 * r * r); }
 FEOS_HD D3 dsqrt(D3 x) {
-    const double s = sqrt(x.re);
-    return chain(x, s, 0.5 / s, -0.25 / (s * s * s));
+    const real s = sqrt(x.re);
+    const real rs = 1.0 / s;
+    return chain(x, s, 0.5 * rs, -0.125 * rs * rs * rs);
 }
+// rho x and rho^2 for the density rho = (rho, 1, 0)
+FEOS_HD D3 times_rho(real rho, D3 x) {
+    return {rho * x.re, rho * x.v1 + x.re, rho * x.v2 + x.v1};
+}
+FEOS_HD D3 rho_squared(real rho) { return {rho * rho, 2.0 * rho, 1.0}; }
 
-// phi(rho) for one parameter row par = [m, sigma, epsilon_k, mu, kappa_ab,
-// epsilon_k_ab, na, nb] at temperature T.  The density-free row constants
-// (feos_tpu's PurePre) are computed here, per element: 2 exp per call.
-FEOS_HD D3 phi_pure_d3(const double* par, double T, D3 rho) {
+// Density-free constants of one parameter row at one temperature: the
+// fields of feos_tpu's PurePre, in its order.
+struct RowConsts {
+    real m;         // segment number
+    real eta_m;     // pi/6 m d^3 with d the temperature-dependent diameter
+    real c_i1[7];   // I1 eta-polynomial coefficients
+    real c_i2[7];   // I2 eta-polynomial coefficients
+    real me;        // m eps/T
+    real m2es3;     // m^2 (eps/T) sigma^3
+    real c_j1[5];   // dipole J1 coefficients ad + bd eps/T
+    real c_j2[4];   // dipole J2 coefficients
+    real inv_s3;    // 1 / sigma^3
+    real mu2eff;    // reduced, T-scaled mu^2: mu^2 MU2_FACTOR / (m T)
+    real delta_t;   // (exp(eps_ab/T) - 1) sigma^3 kappa_ab
+    real na, nb;
+};
+
+// The row stage for par = [m, sigma, epsilon_k, mu, kappa_ab, epsilon_k_ab,
+// na, nb] at temperature T (precompute_pure).
+FEOS_HD RowConsts row_consts(const double* par, double temperature) {
     // universal constants (Gross & Sadowski 2001; Gross & Vrabec 2006),
     // feos_tpu/constants.py; local so that device code may index them
     const double A0[7] = {0.91056314451539, 0.63612814494991, 2.68613478913903,
@@ -102,94 +145,152 @@ FEOS_HD D3 phi_pure_d3(const double* par, double T, D3 rho) {
                              {-0.80875619458, -2.38026356489, 1.65427830900},
                              {0.69028490492, -0.27012609786, -3.43967436378}};
 
-    const double m = par[0], sigma = par[1], eps_k = par[2], mu = par[3];
-    const double kappa_ab = par[4], eps_k_ab = par[5], na = par[6], nb = par[7];
+    const real m = par[0], sigma = par[1], eps_k = par[2], mu = par[3];
+    const real kappa_ab = par[4], eps_k_ab = par[5];
+    const real inv_t = 1.0 / real(temperature);
+    const real e = eps_k * inv_t;
+    const real s3 = sigma * sigma * sigma;
+    const real inv_m = 1.0 / m;
+    const real m1 = (m - 1.0) * inv_m;
+    const real m2 = (m - 2.0) * inv_m;
+    const real mc = fmin(m, real(2.0));
+    const real inv_mc = 1.0 / mc;
+    const real md1 = (mc - 1.0) * inv_mc;
+    const real md2 = md1 * (mc - 2.0) * inv_mc;
+    const real d = sigma * (1.0 - 0.12 * exp(-3.0 * e));
 
-    // row constants (precompute_pure)
-    const double d = sigma * (1.0 - 0.12 * exp(-3.0 * eps_k / T));
-    const double eta_m = kPi / 6.0 * m * (d * d * d);
-    const double e = eps_k / T;
-    const double s3 = sigma * sigma * sigma;
-    const double m1 = (m - 1.0) / m;
-    const double m2 = (m - 2.0) / m;
-    const double mu2 = mu * mu / (m * s3 * eps_k) * kMu2Factor;
-    const double mu2eff = mu2 * e * s3;
-    const double mc = fmin(m, 2.0);
-    const double md1 = (mc - 1.0) / mc;
-    const double md2 = md1 * (mc - 2.0) / mc;
-    const double delta_t = (exp(eps_k_ab / T) - 1.0) * s3 * kappa_ab;
-
-    // density powers (phi_pure_pre)
-    const D3 eta = eta_m * rho;
-    const D3 eta2 = eta * eta;
-    const D3 eta3 = eta2 * eta;
-    const D3 eta_m1 = 1.0 / (1.0 - eta);
-    const D3 eta_m2 = eta_m1 * eta_m1;
-    const D3 etas[7] = {mk(1.0), eta, eta2, eta3, eta2 * eta2, eta2 * eta3, eta3 * eta3};
-
-    // hard sphere
-    const D3 hs = m * rho * (4.0 * eta - 3.0 * eta2) * eta_m2;
-
-    // hard chain
-    const D3 g = (1.0 - eta / 2.0) * eta_m1 * eta_m2;
-    const D3 hc = -rho * (m - 1.0) * dlog(g);
-
-    // dispersion
-    D3 I1 = mk(0.0), I2 = mk(0.0);
+    RowConsts rc;
+    rc.m = m;
+    rc.eta_m = kPi / 6.0 * m * (d * d * d);
     for (int i = 0; i < 7; ++i) {
-        I1 = I1 + (m1 * (m2 * A2[i] + A1[i]) + A0[i]) * etas[i];
-        I2 = I2 + (m1 * (m2 * B2[i] + B1[i]) + B0[i]) * etas[i];
+        rc.c_i1[i] = m1 * (m2 * A2[i] + A1[i]) + A0[i];
+        rc.c_i2[i] = m1 * (m2 * B2[i] + B1[i]) + B0[i];
     }
-    const D3 C1 = 1.0 / (1.0 + m * (8.0 * eta - 2.0 * eta2) * eta_m2 * eta_m2 +
-                         (1.0 - m) *
-                             (20.0 * eta - 27.0 * eta2 + 12.0 * eta2 * eta -
-                              2.0 * eta2 * eta2) /
-                             ((1.0 - eta) * (1.0 - eta) * (2.0 - eta) * (2.0 - eta)));
-    const D3 I = 2.0 * I1 + C1 * I2 * (m * e);
-    const D3 disp = (-kPi * (m * m * e * s3)) * (rho * rho) * I;
-
-    // dipole: scale-safe Pade phi2 mu2^2 / (1 - r mu2), r = rho (J2/J1) 4pi/3.
-    // A J1 of exactly 0 is replaced by the constant 1, whose derivatives are
-    // 0, as the torch.where of the plain version does
-    D3 J1 = mk(0.0), J2 = mk(0.0);
+    rc.me = m * e;
+    rc.m2es3 = m * rc.me * s3;
     for (int i = 0; i < 5; ++i) {
-        const double a = AD[i][0] + md1 * AD[i][1] + md2 * AD[i][2];
-        const double b = i < 3 ? BD[i][0] + md1 * BD[i][1] + md2 * BD[i][2] : 0.0;
-        J1 = J1 + (a + b * e) * etas[i];
+        const real a = AD[i][0] + md1 * AD[i][1] + md2 * AD[i][2];
+        rc.c_j1[i] = i < 3 ? a + (BD[i][0] + md1 * BD[i][1] + md2 * BD[i][2]) * e : a;
     }
     for (int i = 0; i < 4; ++i)
-        J2 = J2 + (CD[i][0] + md1 * CD[i][1] + md2 * CD[i][2]) * etas[i];
-    const D3 phi2 = -(rho * rho) * J1 * (kPi / s3);
-    const D3 J1safe = J1.re != 0.0 ? J1 : mk(1.0);
-    const D3 ratio = rho * (J2 / J1safe) * (4.0 / 3.0 * kPi);
-    const D3 dipole = phi2 * (mu2eff * mu2eff) / (1.0 - ratio * mu2eff);
-
-    // association (closed-form 2-site); delta_t = 0 gives X = 1, term 0
-    const D3 k = eta * eta_m1;
-    const D3 delta = (1.0 + k * (1.5 + 0.5 * k)) * eta_m1 * delta_t;
-    const D3 rhoa = na * rho;
-    const D3 rhob = nb * rho;
-    const D3 aux = 1.0 + (rhoa - rhob) * delta;
-    const D3 sq = dsqrt(aux * aux + 4.0 * rhob * delta);
-    const D3 xa = 2.0 / (sq + 1.0 + (rhob - rhoa) * delta);
-    const D3 xb = 2.0 / (sq + 1.0 - (rhob - rhoa) * delta);
-    const D3 assoc =
-        rhoa * (dlog(xa) - 0.5 * xa + 0.5) + rhob * (dlog(xb) - 0.5 * xb + 0.5);
-
-    return hs + hc + disp + dipole + assoc;
+        rc.c_j2[i] = CD[i][0] + md1 * CD[i][1] + md2 * CD[i][2];
+    rc.inv_s3 = 1.0 / s3;
+    // mu^2 / (m sigma^3 eps) MU2_FACTOR (eps/T) sigma^3, cancelled
+    rc.mu2eff = mu * mu * inv_m * inv_t * kMu2Factor;
+    rc.delta_t = (exp(eps_k_ab * inv_t) - 1.0) * s3 * kappa_ab;
+    rc.na = par[6];
+    rc.nb = par[7];
+    return rc;
 }
 
-// Element i of a (B, k) density batch: row i / k of params (B, 8) and
-// temperature (B,); out is (3, B, k) = [phi, phi', phi''].
-FEOS_HD void phi_d2_at(const double* params, const double* temperature,
-                       const double* rho, double* out, int64_t B, int64_t k,
-                       int64_t i) {
-    const int64_t row = i / k;
-    const int64_t n = B * k;
-    const D3 phi = phi_pure_d3(params + 8 * row, temperature[row], D3{rho[i], 1.0, 0.0});
-    out[i] = phi.re;
-    out[n + i] = phi.v1;
-    out[2 * n + i] = phi.v2;
+// What the terms share at one density rho: eta = eta_m rho, its powers, and
+// the reciprocals 1/(1 - eta) (D3) and 1/(2 - eta) (value only).
+struct Powers {
+    real rho;
+    D3 eta, eta2, eta3, eta4, i1, i2;  // i1 = 1/(1 - eta), i2 = i1^2
+    real inv2;                         // 1/(2 - eta.re)
+};
+
+FEOS_HD Powers powers(const RowConsts& rc, real rho) {
+    Powers p;
+    p.rho = rho;
+    p.eta = {rc.eta_m * rho, rc.eta_m, 0.0};
+    p.eta2 = p.eta * p.eta;
+    p.eta3 = p.eta2 * p.eta;
+    p.eta4 = p.eta2 * p.eta2;
+    p.i1 = recip(1.0 - p.eta);
+    p.i2 = p.i1 * p.i1;
+    p.inv2 = 1.0 / (2.0 - p.eta.re);
+    return p;
+}
+
+// hard sphere and hard chain
+FEOS_HD D3 phi_hs_hc(const RowConsts& rc, const Powers& p) {
+    const D3 hs = rc.m * times_rho(p.rho, (4.0 * p.eta - 3.0 * p.eta2) * p.i2);
+    // g = (1 - eta/2) / (1 - eta)^3, so 1/g = 2 (1 - eta)^3 / (2 - eta)
+    const D3 g = (1.0 - 0.5 * p.eta) * p.i1 * p.i2;
+    const real om = 1.0 - p.eta.re;
+    const D3 hc = (1.0 - rc.m) * times_rho(p.rho, dlog(g, 2.0 * om * om * om * p.inv2));
+    return hs + hc;
+}
+
+FEOS_HD D3 phi_disp(const RowConsts& rc, const Powers& p) {
+    const D3 etas[7] = {mk(1.0), p.eta, p.eta2, p.eta3, p.eta4,
+                        p.eta2 * p.eta3, p.eta3 * p.eta3};
+    D3 I1 = mk(rc.c_i1[0]), I2 = mk(rc.c_i2[0]);
+    for (int i = 1; i < 7; ++i) {
+        I1 = I1 + rc.c_i1[i] * etas[i];
+        I2 = I2 + rc.c_i2[i] * etas[i];
+    }
+    const D3 w = p.i1 * inv(2.0 - p.eta, p.inv2);  // 1/((1 - eta)(2 - eta))
+    const D3 C1 = recip(
+        1.0 + rc.m * (8.0 * p.eta - 2.0 * p.eta2) * (p.i2 * p.i2) +
+        (1.0 - rc.m) *
+            (20.0 * p.eta - 27.0 * p.eta2 + 12.0 * p.eta3 - 2.0 * p.eta4) * (w * w));
+    const D3 I = 2.0 * I1 + rc.me * C1 * I2;
+    return (-kPi * rc.m2es3) * rho_squared(p.rho) * I;
+}
+
+// Dipole: the scale-safe Pade phi2 mu2^2 / (1 - r mu2) with
+// r = rho (J2/J1) 4pi/3, here with J1 multiplied through numerator and
+// denominator.  A J1 of exactly 0 is replaced there by the constant 1,
+// whose derivatives are 0, as the torch.where of the plain version does.
+FEOS_HD D3 phi_dipole(const RowConsts& rc, const Powers& p) {
+    const D3 etas[5] = {mk(1.0), p.eta, p.eta2, p.eta3, p.eta4};
+    D3 J1 = mk(rc.c_j1[0]), J2 = mk(rc.c_j2[0]);
+    for (int i = 1; i < 5; ++i) J1 = J1 + rc.c_j1[i] * etas[i];
+    for (int i = 1; i < 4; ++i) J2 = J2 + rc.c_j2[i] * etas[i];
+    const D3 phi2 = (-kPi * rc.inv_s3) * rho_squared(p.rho) * J1;
+    const D3 j1 = J1.re != 0.0 ? J1 : mk(1.0);
+    const D3 den = j1 - (4.0 / 3.0 * kPi * rc.mu2eff) * times_rho(p.rho, J2);
+    return (rc.mu2eff * rc.mu2eff) * phi2 * j1 * recip(den);
+}
+
+FEOS_HD bool has_dipole(const RowConsts& rc) { return rc.mu2eff != 0.0; }
+FEOS_HD bool has_assoc(const RowConsts& rc) { return rc.delta_t != 0.0; }
+FEOS_HD bool symmetric_sites(const RowConsts& rc) { return rc.na == rc.nb; }
+
+// Association, the closed-form 2-site solution X_A = 2/da, X_B = 2/db, at
+// rho_a = na rho, rho_b = nb rho and association strength delta.
+FEOS_HD D3 assoc_sites(D3 rhoa, D3 rhob, D3 delta) {
+    const D3 aux = 1.0 + (rhoa - rhob) * delta;
+    const D3 sq = dsqrt(aux * aux + 4.0 * rhob * delta);
+    const D3 w = (rhob - rhoa) * delta;
+    const D3 da = sq + 1.0 + w;
+    const D3 db = sq + 1.0 - w;
+    const D3 xa = 2.0 * inv(da, 1.0 / da.re);
+    const D3 xb = 2.0 * inv(db, 1.0 / db.re);
+    // d log(x)/dx = 1/x = da/2 or db/2: no division
+    return rhoa * (dlog(xa, 0.5 * da.re) - 0.5 * xa + 0.5) +
+           rhob * (dlog(xb, 0.5 * db.re) - 0.5 * xb + 0.5);
+}
+
+// The same with as many A as B sites: X_A = X_B, one root serves both.
+FEOS_HD D3 assoc_symmetric(D3 rhoa, D3 delta) {
+    const D3 da = dsqrt(1.0 + 4.0 * rhoa * delta) + 1.0;
+    const D3 xa = 2.0 * inv(da, 1.0 / da.re);
+    return 2.0 * rhoa * (dlog(xa, 0.5 * da.re) - 0.5 * xa + 0.5);
+}
+
+FEOS_HD D3 assoc_delta(const RowConsts& rc, const Powers& p) {
+    const D3 k = p.eta * p.i1;
+    return (1.0 + k * (1.5 + 0.5 * k)) * p.i1 * rc.delta_t;
+}
+
+FEOS_HD D3 phi_assoc(const RowConsts& rc, const Powers& p) {
+    const D3 delta = assoc_delta(rc, p);
+    const D3 rhoa = {rc.na * p.rho, rc.na, 0.0};
+    if (symmetric_sites(rc)) return assoc_symmetric(rhoa, delta);
+    return assoc_sites(rhoa, {rc.nb * p.rho, rc.nb, 0.0}, delta);
+}
+
+// phi at one density: the sum of the terms, skipping the exact zeros
+FEOS_HD D3 phi_d3(const RowConsts& rc, real rho) {
+    const Powers p = powers(rc, rho);
+    D3 phi = phi_hs_hc(rc, p) + phi_disp(rc, p);
+    if (has_dipole(rc)) phi = phi + phi_dipole(rc, p);
+    if (has_assoc(rc)) phi = phi + phi_assoc(rc, p);
+    return phi;
 }
 
 }  // namespace feos

@@ -19,10 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "feos_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC", "--resource-usage"]
 LIB_NAME = "libfeos_kernels.so"
 
 _lib = None
@@ -80,7 +78,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()["path"]))
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.feos_phi_d2.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int, ptr]
-        lib.feos_phi_d2.restype = ctypes.c_int
+        i32 = ctypes.c_int
+        lib.feos_phi_d2.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+        lib.feos_phi_d2.restype = i32
+        lib.feos_phi_d2_empty.argtypes = [i64, i64, i32, ptr]
+        lib.feos_phi_d2_empty.restype = i32
         _lib = lib
     return _lib

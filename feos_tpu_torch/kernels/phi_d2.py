@@ -1,12 +1,13 @@
 """phi_d2: (phi, phi', phi'') of pure PC-SAFT for a ``(B, k)`` density batch.
 
-The wrapper of the CUDA kernel in ``feos_tpu_torch/csrc/phi_d2.cu``, the port
+The wrapper of the CUDA kernels in ``feos_tpu_torch/csrc/phi_d2.cu``, the port
 of the repo's one TPU kernel (``benchmarks/pallas_experiment.py::_kernel``).
 Every phi evaluation inside the VLE solve goes through it.
 
 On a CPU tensor it takes :func:`phi_d2_plain`, the same function in torch
-ops.  On a CUDA tensor it launches the kernel or raises; it never falls back.
-``phi_d2.launches`` counts kernel launches.
+ops.  On a CUDA tensor it launches the kernel variant the library picks for
+``k`` or raises; it never falls back.  ``phi_d2.launches`` counts kernel
+launches and ``phi_d2.launches_by_k`` counts them by ``k``.
 """
 
 from __future__ import annotations
@@ -84,7 +85,9 @@ def phi_d2(params, temperature, rho):
     if err != 0:
         raise RuntimeError(f"phi_d2 kernel launch failed: cudaError {err}")
     phi_d2.launches += 1
+    phi_d2.launches_by_k[k] = phi_d2.launches_by_k.get(k, 0) + 1
     return out[0], out[1], out[2]
 
 
 phi_d2.launches = 0
+phi_d2.launches_by_k = {}

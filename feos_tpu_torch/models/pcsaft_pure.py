@@ -47,8 +47,9 @@ class PureParams(NamedTuple):
         return cls(*parameters.unbind(-1))
 
     @classmethod
-    def from_numpy(cls, parameters, device) -> "PureParams":
-        """The JAX package's ``(B, 8)`` parameters, as numpy, on ``device``."""
+    def from_numpy(cls, parameters, device="cuda") -> "PureParams":
+        """The JAX package's ``(B, 8)`` parameters, as numpy, on ``device``
+        (the card unless the caller asks for the CPU)."""
         t = torch.as_tensor(np.asarray(parameters, dtype=np.float64), device=device)
         return cls.from_tensor(t)
 
@@ -261,13 +262,14 @@ def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
 
 class PcSaftPure(nn.Module):
     """Module facade over the functional API; holds the ``(B, 8)``
-    parameters as an ``nn.Parameter`` on ``device``.
+    parameters as an ``nn.Parameter`` on ``device``, the card unless the
+    caller asks for the CPU.
 
     ``vapor_pressure`` returns ``(nans, p_Pa)``, fixed-shape and NaN on
     failed rows; ``helmholtz_energy`` and ``derivatives`` return values.
     """
 
-    def __init__(self, parameters, device):
+    def __init__(self, parameters, device="cuda"):
         super().__init__()
         t = torch.as_tensor(np.asarray(parameters, dtype=np.float64), device=device)
         self.params = nn.Parameter(t)

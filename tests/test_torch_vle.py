@@ -6,6 +6,8 @@ grid, the README rows and supercritical rows) goes through the port's
 one jit, and through the independent C++ oracle.
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +54,19 @@ def _inputs():
 
 
 @pytest.fixture(scope="module")
-def solved():
+def backend():
+    """``cpu_backend`` once its library loads.  Another test process may be
+    building ``csrc/libfeos_cpu.so`` at the same moment, and a load that
+    finds the file half written fails: retry a few times, 2 s apart."""
+    for _ in range(10):
+        if cpu_backend.available():
+            break
+        time.sleep(2.0)
+    return cpu_backend
+
+
+@pytest.fixture(scope="module")
+def solved(backend):
     """(params, T, port, jax, oracle): each solution as (rho_v, rho_l, ok)."""
     params, temperature = _inputs()
     port = vle.pure_vle(torch.as_tensor(params), torch.as_tensor(temperature))
@@ -62,7 +76,7 @@ def solved():
     ref = solve(JaxParams.from_array(jnp.asarray(params)), jnp.asarray(temperature))
     ref = tuple(np.asarray(x) for x in ref)
 
-    rho, ok = cpu_backend.vapor_pressure_densities(params, temperature)
+    rho, ok = backend.vapor_pressure_densities(params, temperature)
     oracle = (rho[:, 0], rho[:, 1], ok)
     return params, temperature, port, ref, oracle
 
