@@ -5,7 +5,13 @@ kernel variant each of the main path's shapes launches against its plain
 PyTorch version, times it beside its bound, checks the README
 anchors, then drives the main path at full size: vapor pressures of a
 100,000-row ``make_batch`` with reverse-mode gradients with respect to all 8
-parameters of every row.  Every phase raises on failure.
+parameters of every row (phase 5).  Phases 6-10 drive the rest of the
+pure-component surface on the same rows, each with its phi_d2 launches by k:
+liquid and saturated liquid densities, critical points, boiling
+temperatures (each with a parameter gradient), residual properties, and
+three steps of ``fit_pure``; each reruns its first 2,000 rows on the CPU
+through the plain path and holds the card to it (the fit runs 2,000 rows on
+both).  Every phase raises on failure.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -29,11 +35,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from feos_tpu_torch import make_batch, pure_vle, vapor_pressure
+from feos_tpu_torch import (
+    PureParams, ResidualProperties, boiling_temperature, critical_point,
+    equilibrium_liquid_density, fit_pure, liquid_density, make_batch, precompute_pure,
+    pure_derivatives, pure_properties, pure_vle, vapor_pressure,
+)
 from feos_tpu_torch.kernels import build
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
-from feos_tpu_torch.models.pcsaft_pure import PureParams, precompute_pure
 from feos_tpu_torch.solvers.vle import _ETA_GRID
+from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, REDUCED_TO_PA_PER_KT, RGAS
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "pure_helmholtz.json"
@@ -68,6 +78,15 @@ OPS_ASSOC_SYMMETRIC = 93
 BYTES_ROW = 72
 BYTES_ELEMENT = 32
 REPS = 50
+# phases 6-10: rows rerun on the CPU through the plain path, Adam steps, the
+# share of critical rows whose VLE must converge at 0.98 T_c (the pure VLE of
+# both packages fails within 2% of T_c on 0.2% of make_batch rows, small-m
+# associating ones), and the f64 noise of a liquid's p~ in units of
+# rho dp~/drho (1.5e-16 measured on the CPU)
+N_CPU = 2_000
+FIT_STEPS = 3
+VLE_NEAR_CRITICAL = 0.995
+P_NOISE = 1e-14
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -298,14 +317,18 @@ def readme_anchors(dev):
     check(np.all(np.abs(grad - want) <= README_GRAD_RTOL * np.abs(want)), "README gradient")
 
 
+def log_sum(nans, x):
+    """sum of log x over the converged rows (bench.py's loss)."""
+    return torch.where(nans, 0.0, torch.log(torch.where(nans, 1.0, x))).sum()
+
+
 def solves_and_grads(params, temperature):
     """The main path: vapor pressures, then d/dparams of sum log p over the
     converged rows (bench.py's loss)."""
     p = params.detach().requires_grad_()
     nans, vp = vapor_pressure(p, temperature)
-    loss = torch.where(nans, 0.0, torch.log(torch.where(nans, 1.0, vp))).sum()
-    loss.backward()
-    return nans, p.grad
+    log_sum(nans, vp).backward()
+    return nans, vp.detach(), p.grad
 
 
 def main_path(dev, params, temperature, power):
@@ -317,7 +340,7 @@ def main_path(dev, params, temperature, power):
 
     phi_d2.launches = 0
     phi_d2.launches_by_k = {}
-    nans, grad = solves_and_grads(params, temperature)
+    nans, vp, grad = solves_and_grads(params, temperature)
     torch.cuda.synchronize()
     launches, by_k = phi_d2.launches, dict(phi_d2.launches_by_k)
     n_ok = int((~nans).sum())
@@ -341,7 +364,239 @@ def main_path(dev, params, temperature, power):
     print(f"main path B={B}: step {step * 1e3:.1f} ms (median of "
           f"{[round(t * 1e3, 1) for t in times]} ms), "
           f"{n_ok / step:.1f} converged solves+gradients/s on {power}")
-    return launches, by_k
+    return launches, by_k, nans, vp
+
+
+def on_card(fn):
+    """``(fn(), seconds, launches, launches by k)``: the phi_d2 counts are
+    set to 0 just before ``fn`` runs and read just after."""
+    torch.cuda.synchronize()
+    phi_d2.launches = 0
+    phi_d2.launches_by_k = {}
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, phi_d2.launches, dict(phi_d2.launches_by_k)
+
+
+def report(phase, name, nans, seconds, launches, by_k):
+    n_ok = int((~nans).sum())
+    print(f"phase {phase} {name}: converged {n_ok} of {nans.numel()}, "
+          f"{seconds * 1e3:.1f} ms, phi_d2 launches {launches}, by k {by_k}")
+    return {"launches": launches, "by_k": {str(k): n for k, n in sorted(by_k.items())},
+            "ms": seconds * 1e3}
+
+
+def cpu(*xs):
+    """The first N_CPU rows of each tensor, as CPU tensors."""
+    return [x[:N_CPU].cpu() for x in xs]
+
+
+def agree(name, nans, card, cpu_nans, cpu_vals, rtol, floor=None):
+    """The card's results against the plain path's on the CPU, all CPU
+    tensors of the same rows: equal masks, and |card - cpu| <= rtol |cpu|
+    (+ a per-row ``floor``) on the converged rows."""
+    check(torch.equal(nans, cpu_nans),
+          f"{name}: card and CPU masks differ on {int((nans != cpu_nans).sum())} rows")
+    ok = ~nans
+    allow = rtol * cpu_vals.abs() + (0.0 if floor is None else floor)
+    err = (card - cpu_vals).abs()
+    same = err == 0.0  # exact zeros included
+    worst = float(torch.where(same, 0.0, err / allow)[ok].max())
+    rel = float(torch.where(same, 0.0, err / cpu_vals.abs())[ok].max())
+    print(f"  card vs CPU {name}, {len(nans)} values: masks equal, max rel err {rel:.3e}, "
+          f"max err / allowed {worst:.3e} (rtol {rtol:g})")
+    check(worst <= 1.0, f"{name}: card and CPU differ beyond rtol {rtol:g}")
+
+
+def liquid_densities(params, temperature, p_sat):
+    """Phase 6: liquid densities at the vapor pressures of phase 5 and
+    saturated liquid densities, each with the gradient of sum log rho."""
+    def run(fn, *args):
+        p = params.detach().requires_grad_()
+        nans, rho = fn(p, *args)
+        log_sum(nans, rho).backward()
+        return nans, rho.detach(), p.grad
+
+    paths, out = {}, {}
+    for name, fn, args in (
+        ("liquid_density", liquid_density, (temperature, p_sat)),
+        ("equilibrium_liquid_density", equilibrium_liquid_density, (temperature,)),
+    ):
+        (nans, rho, grad), sec, n, by_k = on_card(lambda: run(fn, *args))
+        paths[name] = report(6, name, nans, sec, n, by_k)
+        check(n > 0, f"{name} launched no phi_d2 kernel")
+        check(int((~nans).sum()) >= MIN_CONVERGED, f"{name}: too few rows converged")
+        check(bool(torch.isfinite(grad).all()), f"{name}: non-finite gradients")
+        with torch.no_grad():
+            cpu_nans, cpu_rho = fn(*cpu(params, *args))
+        agree(name, *cpu(nans, rho), cpu_nans, cpu_rho, 1e-10)
+        out[name] = (nans, rho)
+    (nans_l, rho_l), (nans_e, rho_e) = out.values()
+    both = ~nans_l & ~nans_e
+    rel = float((rho_l / rho_e - 1.0).abs()[both].max())
+    print(f"  liquid at p_sat vs equilibrium liquid on {int(both.sum())} rows: max rel "
+          f"diff {rel:.3e} (rtol 1e-9)")
+    check(rel < 1e-9, "liquid density at p_sat differs from the equilibrium liquid")
+    return nans_l, rho_l, paths
+
+
+def critical_points(params):
+    """Phase 7: critical points with the gradient of sum T_c; the critical
+    condition at the returned states, and the VLE's reach around T_c."""
+    stats = {}
+
+    def run():
+        p = params.detach().requires_grad_()
+        nans, t_c, rho_c = critical_point(p, stats=stats)
+        torch.where(nans, 0.0, t_c).sum().backward()
+        return nans, t_c.detach(), rho_c.detach(), p.grad
+
+    (nans, t_c, rho_c, grad), sec, n, by_k = on_card(run)
+    path = report(7, "critical_point", nans, sec, n, by_k)
+    path["newton"] = stats["newton"]
+    print(f"  critical Newton iterations {stats['newton']} (cap 60)")
+    check(n > 0, "critical_point launched no phi_d2 kernel")
+    check(bool(torch.isfinite(grad).all()), "critical_point: non-finite gradients")
+    ok = ~nans
+    with torch.no_grad():
+        rho = rho_c * KMOL_M3_TO_REDUCED
+        _, pt, dpt = pure_derivatives(PureParams.from_tensor(params), t_c, rho)
+        margin = float((dpt.abs() / (pt / rho))[ok].max())
+        lo, _ = vapor_pressure(params[ok], 0.98 * t_c[ok])
+        hi, _ = vapor_pressure(params[ok], 1.03 * t_c[ok])
+    n_lo = int((~lo).sum())
+    print(f"  |dp~/drho| / (p~/rho) at the critical states: max {margin:.3e} (bound 1e-5); "
+          f"vapor pressure converges at 0.98 T_c on {n_lo} of {int(ok.sum())} rows "
+          f"(floor {VLE_NEAR_CRITICAL:g} of them), at 1.03 T_c on {int((~hi).sum())}")
+    check(margin < 1e-5, "the critical condition does not hold")
+    check(n_lo >= VLE_NEAR_CRITICAL * int(ok.sum()), "VLE fails below T_c")
+    check(bool(hi.all()), "VLE converges above T_c")
+    with torch.no_grad():
+        cpu_nans, cpu_t, cpu_rho = critical_point(*cpu(params))
+    agree("critical_point T_c", *cpu(nans, t_c), cpu_nans, cpu_t, 1e-9)
+    agree("critical_point rho_c", *cpu(nans, rho_c), cpu_nans, cpu_rho, 1e-9)
+    return path
+
+
+def boiling_temperatures(params, temperature, p_sat, nans_vp):
+    """Phase 8: boiling temperatures at phase 5's vapor pressures from
+    0.9 T, with the gradient of sum T_b; the round trip to T."""
+    stats = {}
+
+    def run():
+        p = params.detach().requires_grad_()
+        nans, t_b = boiling_temperature(p, p_sat, 0.9 * temperature, stats=stats)
+        torch.where(nans, 0.0, t_b).sum().backward()
+        return nans, t_b.detach(), p.grad
+
+    (nans, t_b, grad), sec, n, by_k = on_card(run)
+    path = report(8, "boiling_temperature", nans, sec, n, by_k)
+    path["outer"] = stats["outer"]
+    both = ~nans & ~nans_vp
+    rel = float((t_b / temperature - 1.0).abs()[both].max())
+    print(f"  secant outer iterations {stats['outer']}; round trip |T_b/T - 1| on "
+          f"{int(both.sum())} rows: max {rel:.3e} (bound 1e-9)")
+    check(n > 0, "boiling_temperature launched no phi_d2 kernel")
+    check(int((~nans).sum()) >= MIN_CONVERGED, "boiling_temperature: too few rows converged")
+    check(rel < 1e-9, "boiling temperature round trip")
+    check(bool(torch.isfinite(grad).all()), "boiling_temperature: non-finite gradients")
+    with torch.no_grad():
+        p_cpu, t_cpu, ps_cpu = cpu(params, temperature, p_sat)
+        cpu_nans, cpu_t = boiling_temperature(p_cpu, ps_cpu, 0.9 * t_cpu)
+    agree("boiling_temperature", *cpu(nans, t_b), cpu_nans, cpu_t, 1e-9)
+    return path
+
+
+def liquid_pressure_noise(params, temperature, rho):
+    """``(rho dp~/drho, the f64 evaluation noise of the liquid p~)``: the
+    liquid's p~ = rho - phi + rho phi' is a difference of terms of the size
+    rho dp~/drho, so it carries rounding of P_NOISE times that, which is a
+    large fraction of p~ where the vapor pressure is low."""
+    _, _, dpt = pure_derivatives(PureParams.from_tensor(params), temperature, rho)
+    stiff = rho * dpt
+    return stiff, P_NOISE * stiff
+
+
+@torch.no_grad()
+def residual_properties(params, temperature, p_sat, nans_l, rho_l):
+    """Phase 9: the residual property set at phase 6's liquid densities.
+
+    The liquid p~ carries f64 noise of P_NOISE rho dp~/drho (see
+    liquid_pressure_noise), so each field that depends on p~ may differ
+    from p_sat or from the CPU by its sensitivity to p~ times that noise.
+    """
+    ok = ~nans_l
+    rho = torch.where(ok, rho_l * KMOL_M3_TO_REDUCED, 1e-3)
+    props, sec, n, by_k = on_card(lambda: pure_properties(params, temperature, rho))
+    path = report(9, "pure_properties", nans_l, sec, n, by_k)
+    stiff, noise = liquid_pressure_noise(params, temperature, rho)
+    to_pa = temperature * REDUCED_TO_PA_PER_KT
+    # rows whose p~ f64 resolves to 1%: elsewhere Z = p~/rho may round to
+    # <= 0 and ln phi = mu - ln Z is not defined
+    resolved = ok & (noise * to_pa < 1e-2 * p_sat)
+    print(f"  rows whose liquid p~ is resolved to 1% in f64: {int(resolved.sum())} of "
+          f"{int(ok.sum())} (lowest p_sat {float(p_sat[ok].min()):.3e} Pa)")
+    for name, field in zip(ResidualProperties._fields, props):
+        rows = resolved if name == "ln_phi" else ok
+        check(bool(torch.isfinite(field[rows]).all()), f"pure_properties {name} not finite")
+    err = (props.pressure - p_sat).abs()
+    n_plain = int((err <= 1e-8 * p_sat)[ok].sum())
+    worst = float((err / (1e-8 * p_sat + noise * to_pa))[ok].max())
+    print(f"  pressure vs p_sat: within rtol 1e-8 on {n_plain} of {int(ok.sum())} rows; "
+          f"max err / (1e-8 p_sat + {P_NOISE:g} rho dp/drho) {worst:.3e}; max "
+          f"{P_NOISE:g} rho dp/drho / p_sat {float((noise * to_pa / p_sat)[ok].max()):.3e}")
+    check(worst <= 1.0, "pure_properties pressure differs from p_sat")
+    # sensitivity of each field to p~, times the noise of p~
+    rt = RGAS * temperature
+    ptilde = props.pressure / to_pa
+    # c_p_res/R = c_v_res/R + x - 1 with x = (p~ + T p~_T)^2 / (rho stiff)
+    x = props.c_p_res / RGAS - props.c_v_res / RGAS + 1.0
+    floors = {
+        "pressure": to_pa * noise,
+        "compressibility": noise / rho,
+        "h_res": rt * noise / rho,
+        "g_res": rt * noise / rho,
+        "c_p_res": RGAS * 2.0 * torch.sqrt(x.abs() / (rho * stiff)) * noise,
+        "ln_phi": noise / ptilde.abs(),
+    }
+    cpu_props = pure_properties(*cpu(params, temperature, rho))
+    for name, field, cpu_field in zip(ResidualProperties._fields, props, cpu_props):
+        out, floor = cpu(~(resolved if name == "ln_phi" else ok))[0], floors.get(name)
+        agree(f"pure_properties {name}", out, *cpu(field), out, cpu_field, 1e-10,
+              None if floor is None else cpu(floor)[0])
+    return path
+
+
+def fit(params_np, temperature, p_sat, rho_l):
+    """Phase 10: FIT_STEPS Adam steps from 1.01 times the parameters, per
+    row, on phase 5's vapor pressures and phase 6's liquid densities at
+    pressure p_sat (rows where either failed are left out).  The loss
+    couples the rows, so the card-against-CPU check fits the first N_CPU
+    rows on both; it runs first and so also warms up ``torch.optim``."""
+    keep = torch.isfinite(p_sat) & torch.isfinite(rho_l)
+    data = (temperature[keep], p_sat[keep], rho_l[keep])
+    start = params_np[keep.cpu().numpy()] * 1.01
+
+    def run(start, temperature, p_sat, rho_l):
+        return fit_pure(start, temperature, p_sat=p_sat, rho_liq=rho_l, pressure=p_sat,
+                        steps=FIT_STEPS)
+
+    card = run(start[:N_CPU], *(x[:N_CPU] for x in data))
+    on_cpu = run(start[:N_CPU], *cpu(*data))
+    res, sec, n, by_k = on_card(lambda: run(start, *data))
+    losses = res.loss_history.cpu().numpy()
+    print(f"phase 10 fit_pure: B={len(start)}, {FIT_STEPS} steps in {sec * 1e3:.1f} ms, "
+          f"step {sec / FIT_STEPS * 1e3:.1f} ms, losses {losses.tolist()}, phi_d2 launches "
+          f"{n} ({n / FIT_STEPS:g} a step), by k {by_k}")
+    check(n > 0, "fit_pure launched no phi_d2 kernel")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0], "fit_pure loss")
+    for name, a, b in (("loss history", card.loss_history, on_cpu.loss_history),
+                       ("parameters", card.parameters.flatten(), on_cpu.parameters.flatten())):
+        no = torch.zeros(b.shape, dtype=torch.bool)
+        agree(f"fit_pure {name}", no, a.cpu(), no, b, 1e-10)
+    return {"launches_per_step": n / FIT_STEPS, "ms_per_step": sec / FIT_STEPS * 1e3,
+            "by_k": {str(k): v for k, v in sorted(by_k.items())}, "steps": FIT_STEPS}
 
 
 def main():
@@ -371,7 +626,17 @@ def main():
     params, temperature = f64(params_np, dev), f64(temperature_np, dev)
     kernel = kernel_vs_plain(dev, params, temperature)
     readme_anchors(dev)
-    launches, by_k = main_path(dev, params, temperature, power)
+    launches, by_k, nans_vp, p_sat = main_path(dev, params, temperature, power)
+
+    # phases 6-10: the rest of the pure-component surface on the same rows
+    paths = {"vapor_pressure": {"launches": launches,
+                                "by_k": {str(k): n for k, n in sorted(by_k.items())}}}
+    nans_l, rho_l, liquid_paths = liquid_densities(params, temperature, p_sat)
+    paths.update(liquid_paths)
+    paths["critical_point"] = critical_points(params)
+    paths["boiling_temperature"] = boiling_temperatures(params, temperature, p_sat, nans_vp)
+    paths["pure_properties"] = residual_properties(params, temperature, p_sat, nans_l, rho_l)
+    paths["fit_pure"] = fit(params_np, temperature, p_sat, rho_l)
 
     shapes = kernel["shapes"]
     ref = shapes["(B, 2)"]  # the most launched shape, with (B, 1)
@@ -389,6 +654,7 @@ def main():
         "bound_by": ref["bound_by"],
         "library_ms": None,  # no single PyTorch call computes phi, phi', phi''
         "shapes": shapes,
+        "launches_by_path": paths,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

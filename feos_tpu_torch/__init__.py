@@ -1,13 +1,19 @@
 """feos_tpu_torch: the PyTorch and CUDA port of feos_tpu, for NVIDIA Hopper.
 
 Differentiable pure-component PC-SAFT in f64: the Helmholtz energy and its
-density derivatives, and batched vapor pressures with exact reverse-mode
-gradients with respect to all 8 parameters of every row.
+density derivatives, residual properties, and batched vapor pressures,
+liquid densities, critical points and boiling temperatures with exact
+reverse-mode gradients with respect to all 8 parameters of every row, and
+the parameter fit built on them.
 
 * :class:`PcSaftPure` -- ``nn.Module`` facade holding ``(B, 8)`` parameters;
-* :func:`vapor_pressure` -- functional form, ``(nans, p_Pa)``;
-* :func:`phi_d2` -- the hand-written CUDA kernel behind every phi
-  evaluation of the VLE solve (its plain PyTorch version on CPU tensors).
+* :func:`vapor_pressure`, :func:`liquid_density`,
+  :func:`equilibrium_liquid_density`, :func:`critical_point`,
+  :func:`boiling_temperature` -- functional forms, ``(nans, values)``;
+* :func:`pure_properties` -- residual property set at (T, rho);
+* :func:`pure_loss`, :func:`fit_pure` -- parameter regression;
+* :func:`phi_d2` -- the hand-written CUDA kernel behind the solvers' phi
+  evaluations (its plain PyTorch version on CPU tensors).
 
 Every function takes its device from its tensors or from a ``device``
 argument, which defaults to ``"cuda"``: the entry points run on the card
@@ -22,22 +28,42 @@ from .models.pcsaft_pure import (
     PcSaftPure,
     PurePre,
     PureParams,
+    boiling_temperature,
+    critical_point,
+    equilibrium_liquid_density,
+    liquid_density,
+    mu_res_pure,
     phi_pure,
     precompute_pure,
     pure_derivatives,
     vapor_pressure,
 )
-from .solvers.vle import pure_vle
+from .properties import ResidualProperties, pure_properties
+from .regression import FitResult, fit_pure, masked_relative_sse, pure_loss
+from .solvers.vle import npt_density, pure_critical, pure_vle
 
 __all__ = [
+    "FitResult",
     "PcSaftPure",
     "PurePre",
     "PureParams",
+    "ResidualProperties",
+    "boiling_temperature",
+    "critical_point",
+    "equilibrium_liquid_density",
+    "fit_pure",
+    "liquid_density",
     "make_batch",
+    "masked_relative_sse",
+    "mu_res_pure",
+    "npt_density",
     "phi_d2",
     "phi_pure",
     "precompute_pure",
+    "pure_critical",
     "pure_derivatives",
+    "pure_loss",
+    "pure_properties",
     "pure_vle",
     "units",
     "vapor_pressure",

@@ -1,13 +1,15 @@
-"""Pure-component PC-SAFT in PyTorch: Helmholtz energy and vapor pressure.
+"""Pure-component PC-SAFT in PyTorch: Helmholtz energy, vapor pressure,
+liquid densities, critical point and boiling temperature.
 
 Counterpart of ``feos_tpu/models/pcsaft_pure.py``.  The functions take
 whole ``(B,)`` parameter columns and ``(B,)`` or ``(B, k)`` densities, with
 the batch written out where the JAX package maps a per-item function with
 ``vmap``.  Everything is ``torch.float64``, on the device of the inputs.
 
-The solver (:mod:`feos_tpu_torch.solvers.vle`) runs detached; gradients
-come from plain autograd through the stationary re-attachment identity in
-:func:`vapor_pressure`, so no Newton iteration is ever differentiated.
+The solvers (:mod:`feos_tpu_torch.solvers`) run detached; gradients come
+from plain autograd through re-attachment identities that are stationary
+at the converged state (or one symbolic Newton step on it), so no Newton
+iteration is ever differentiated.
 
 Parameter layout (per row): ``[m, sigma, epsilon_k, mu, kappa_ab,
 epsilon_k_ab, na, nb]``.
@@ -23,7 +25,9 @@ from torch import nn
 
 from ..constants import A0, A1, A2, B0, B1, B2, AD, BD, CD
 from ..ops.derivatives import value_and_2derivs
-from ..units import MU2_FACTOR, REDUCED_TO_PA_PER_KT
+from ..units import (
+    KMOL_M3_TO_REDUCED, MU2_FACTOR, PA_PER_KT_TO_REDUCED, REDUCED_TO_PA_PER_KT,
+)
 
 PI = np.pi
 F64 = torch.float64
@@ -229,6 +233,18 @@ def pure_derivatives(p: PureParams, temperature, density):
     return val, density - val + density * d1, 1.0 + density * d2
 
 
+def mu_res_pure(p: PureParams, temperature, density):
+    """Reduced residual chemical potential mu_res/kT = dphi/drho; with grad
+    mode on it stays differentiable."""
+    keep_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        x = density if density.requires_grad else density.detach().requires_grad_()
+        (d1,) = torch.autograd.grad(
+            phi_pure(p, temperature, x).sum(), x, create_graph=keep_graph
+        )
+    return d1
+
+
 def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
     """Batched vapor pressure in Pa with parameter gradients.
 
@@ -260,13 +276,124 @@ def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
     return ~ok, torch.where(ok, pressure, torch.nan)
 
 
+def liquid_density(parameters: torch.Tensor, temperature, pressure):
+    """Batched liquid density in kmol/m^3 at ``(T, p [Pa])`` with gradients.
+
+    The detached NPT solve starts on the liquid branch; one symbolic Newton
+    step re-attaches the gradient:  rho <- rho - (p~(rho) - p~*) / (dp~/drho).
+    The step needs phi'' in the graph, so the parameter gradient is second
+    order in phi.
+
+    Returns ``(nans, rho)``, NaN on failed rows.
+    """
+    from ..solvers.vle import npt_density
+
+    p_red = pressure / temperature * PA_PER_KT_TO_REDUCED
+    rho, ok = npt_density(parameters, temperature, p_red, liquid=True)
+    # sanitise failed lanes before re-attachment (see vapor_pressure)
+    rho = torch.where(ok, rho, 1e-3)
+    _, ptilde, dptilde = pure_derivatives(
+        PureParams.from_tensor(parameters), temperature, rho
+    )
+    rho = rho - (ptilde - p_red) / dptilde
+    return ~ok, torch.where(ok, rho / KMOL_M3_TO_REDUCED, torch.nan)
+
+
+def equilibrium_liquid_density(parameters: torch.Tensor, temperature):
+    """Batched saturated liquid density in kmol/m^3 with gradients.
+
+    The detached VLE solve, then one Newton step on the liquid density
+    toward the vapor-pressure identity's pressure (see
+    :func:`vapor_pressure`), which re-attaches the gradient.
+
+    Returns ``(nans, rho)``, NaN on failed rows.
+    """
+    from ..solvers.vle import pure_vle
+
+    rho_v, rho_l, ok = pure_vle(parameters, temperature)
+    # sanitise failed lanes before re-attachment (see vapor_pressure)
+    rho_v = torch.where(ok, rho_v, 1e-5)
+    rho_l = torch.where(ok, rho_l, 1e-3)
+
+    p = PureParams.from_tensor(parameters)
+    a_l, p_l, dp_l = pure_derivatives(p, temperature, rho_l)
+    a_l = a_l / rho_l
+    a_v = phi_pure(p, temperature, rho_v) / rho_v
+    p_eq = -(a_v - a_l + torch.log(rho_v / rho_l)) / (1.0 / rho_v - 1.0 / rho_l)
+    rho = rho_l - (p_l - p_eq) / dp_l
+    return ~ok, torch.where(ok, rho / KMOL_M3_TO_REDUCED, torch.nan)
+
+
+def critical_point(parameters: torch.Tensor, stats=None):
+    """Batched pure-component critical points with parameter gradients.
+
+    The detached solve (:func:`feos_tpu_torch.solvers.vle.pure_critical`),
+    then one symbolic Newton step on the converged ``(ln rho_c, ln T_c)``
+    re-attaches the implicit-function gradient.  As in the JAX package, the
+    step's Jacobian is detached: its parameter dependence contributes
+    O(residual) to the gradient.  If ``stats`` is a dict, it receives the
+    solver's (see ``pure_critical``).
+
+    Returns ``(nans, T_c [K], rho_c [kmol/m^3])``, NaN on failed rows.
+    """
+    from ..solvers.vle import _crit_residual, _newton_2x2, _val_and_jac, pure_critical
+
+    rho_c, t_c, ok = pure_critical(parameters, stats=stats)
+    # sanitise failed lanes before re-attachment (see vapor_pressure)
+    rho_c = torch.where(ok, rho_c, 1e-3)
+    t_c = torch.where(ok, t_c, 300.0)
+    u = torch.stack([torch.log(rho_c), torch.log(t_c)], 1)
+    r = _crit_residual(PureParams.from_tensor(parameters), u)
+    p_s = PureParams.from_tensor(parameters.detach())
+    _, J = _val_and_jac(lambda v: _crit_residual(p_s, v), u)
+    out = torch.exp(u - _newton_2x2(r, J))
+    return (~ok, torch.where(ok, out[:, 1], torch.nan),
+            torch.where(ok, out[:, 0] / KMOL_M3_TO_REDUCED, torch.nan))
+
+
+def boiling_temperature(parameters: torch.Tensor, pressure, t0, stats=None):
+    """Batched boiling temperature in K at ``pressure`` [Pa], with parameter
+    and pressure gradients.
+
+    A detached secant iteration in (1/T, ln p) over :func:`vapor_pressure`
+    from the initial estimate ``t0``, each step a cold vapor-pressure
+    solve, then one symbolic Newton step in T re-attaches the gradients
+    (:mod:`feos_tpu_torch.solvers.tsolve`).  ``pressure`` and ``t0`` are
+    scalars or ``(B,)``.  If ``stats`` is a dict, it receives the secant's
+    iterations as ``outer``.
+
+    Returns ``(nans, T)``, NaN on failed rows.
+    """
+    from ..solvers.tsolve import reattach_temperature, saturation_temperature_loop
+
+    B, dev = parameters.shape[0], parameters.device
+    p_target = torch.as_tensor(pressure, dtype=F64, device=dev).expand(B)
+    t0 = torch.as_tensor(t0, dtype=F64, device=dev).detach().expand(B)
+    par_s = parameters.detach()
+
+    def solve(temperature):
+        nans, pw = vapor_pressure(par_s, temperature)
+        return torch.log(pw), ~nans  # pw is NaN on failed rows
+
+    t_star, done = saturation_temperature_loop(
+        solve, t0, torch.log(p_target.detach()), stats=stats
+    )
+    t_out = reattach_temperature(
+        lambda temperature: vapor_pressure(parameters, temperature)[1],
+        t_star, p_target, done,
+    )
+    return ~done, t_out
+
+
 class PcSaftPure(nn.Module):
     """Module facade over the functional API; holds the ``(B, 8)``
     parameters as an ``nn.Parameter`` on ``device``, the card unless the
     caller asks for the CPU.
 
-    ``vapor_pressure`` returns ``(nans, p_Pa)``, fixed-shape and NaN on
-    failed rows; ``helmholtz_energy`` and ``derivatives`` return values.
+    The solved properties return ``(nans, values)`` (``critical_point``:
+    ``(nans, T_c, rho_c)``), fixed-shape and NaN on failed rows;
+    ``helmholtz_energy``, ``derivatives`` and ``residual_properties``
+    return values.
     """
 
     def __init__(self, parameters, device="cuda"):
@@ -285,5 +412,24 @@ class PcSaftPure(nn.Module):
         p = PureParams.from_tensor(self.params)
         return pure_derivatives(p, self._tensor(temperature), self._tensor(density))
 
+    def residual_properties(self, temperature, density):
+        """Residual property set at (T, rho [A^-3]); see
+        :mod:`feos_tpu_torch.properties`."""
+        from ..properties import pure_properties
+
+        return pure_properties(self.params, self._tensor(temperature), self._tensor(density))
+
     def vapor_pressure(self, temperature):
         return vapor_pressure(self.params, self._tensor(temperature))
+
+    def liquid_density(self, temperature, pressure):
+        return liquid_density(self.params, self._tensor(temperature), self._tensor(pressure))
+
+    def equilibrium_liquid_density(self, temperature):
+        return equilibrium_liquid_density(self.params, self._tensor(temperature))
+
+    def critical_point(self):
+        return critical_point(self.params)
+
+    def boiling_temperature(self, pressure, t0):
+        return boiling_temperature(self.params, self._tensor(pressure), self._tensor(t0))

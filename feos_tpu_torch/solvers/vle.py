@@ -1,8 +1,10 @@
-"""Batched gradient-free pure VLE solver in PyTorch (f64).
+"""Batched gradient-free pure VLE, density and critical-point solvers in
+PyTorch (f64).
 
-Counterpart of the f64 path of ``feos_tpu/solvers/vle.py::pure_vle``
-(``mixed_precision=False``): the same initialisation, Newton iterations,
-tolerances and residual acceptance, on ``(B, ...)`` tensors.
+Counterpart of the f64 paths of ``feos_tpu/solvers/vle.py`` (``pure_vle``
+and ``npt_density`` with ``mixed_precision=False``, ``pure_critical``): the
+same initialisation, Newton iterations, tolerances and residual acceptance,
+on ``(B, ...)`` tensors.
 
 * The JAX package maps per-row ``lax.while_loop``s with ``vmap``, which
   freezes each row at its own exit.  Here each loop runs over the whole
@@ -10,7 +12,9 @@ tolerances and residual acceptance, on ``(B, ...)`` tensors.
   not done and under its iteration cap, and only active rows take the
   update.  The loop stops when no row is active (one host sync per
   iteration).
-* Every phi evaluation goes through the ``phi_d2`` kernel wrapper.
+* Every phi evaluation goes through the ``phi_d2`` kernel wrapper, except
+  the critical Newton's, which needs phi''' and T-derivatives and runs
+  ``phi_pure`` in torch ops (as the JAX package runs it outside Pallas).
 * Failures are a boolean ``ok`` per row on fixed shapes, never exceptions.
 * Everything runs under ``torch.no_grad()`` on detached inputs; gradients
   re-attach outside, through stationary identities.
@@ -27,10 +31,12 @@ import numpy as np
 import torch
 
 from ..kernels.phi_d2 import phi_d2
-from ..models.pcsaft_pure import PureParams, precompute_pure
+from ..models.pcsaft_pure import PureParams, phi_pure, precompute_pure
 
+PI = np.pi
 _MAX_NPT_ITER = 60
 _MAX_VLE_ITER = 80
+_MAX_CRIT_ITER = 60
 _STEP_TOL = 3e-12
 # residual acceptance: well above the f64 cancellation noise of
 # p~ = rho - phi + rho*phi', far below any unconverged state
@@ -123,6 +129,32 @@ def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign):
     ).abs()
     ok = torch.isfinite(rho) & (dptilde > 0.0) & (resid < _RES_RTOL)
     return rho, ok, mu, n_iter
+
+
+@torch.no_grad()
+def npt_density(params, temperature, p_target, liquid=True, stats=None):
+    """Single-branch pure NPT solve p~(rho) = p_target, all in f64.
+
+    ``params (B, 8)``, ``temperature (B,)`` and the reduced ``p_target (B,)``
+    are float64 on one device.  The liquid branch starts at packing fraction
+    0.5, the vapor branch at the ideal-gas density p~ = rho; each iteration
+    is one ``phi_d2`` call at ``(B, 1)``.  If ``stats`` is a dict, it
+    receives the loop's iterations as ``npt`` and ``phi_d2_calls``.
+
+    Returns ``(rho, ok)``; rows whose root packs above eta = 0.7 are masked.
+    """
+    params = params.detach().contiguous()
+    temperature = temperature.detach().contiguous()
+    p_target = p_target.detach()
+    eta_m = precompute_pure(PureParams.from_tensor(params), temperature).eta_m
+    rows = _Rows(params, temperature, eta_m)
+    rho0 = 0.5 / eta_m if liquid else torch.clamp(p_target, min=1e-30)
+    sign = torch.tensor([1.0 if liquid else -1.0], dtype=F64, device=eta_m.device)
+    rho, ok, _, n_iter = _npt_multi_pure(rows, p_target[:, None], rho0[:, None], sign)
+    if stats is not None:
+        stats.update(npt=n_iter, phi_d2_calls=n_iter)
+    rho = rho[:, 0]
+    return rho, ok[:, 0] & (eta_m * rho < 0.7)
 
 
 def _spinodal_estimate(rows: _Rows):
@@ -309,3 +341,139 @@ def pure_vle(params, temperature, stats=None):
         & (dpt_l > 0.0)
     )
     return rho_v, rho_l, ok
+
+
+def _phi_d2_d3(p: PureParams, temperature, rho):
+    """(phi'', phi''') at ``(B,)`` states, by reverse mode three times.
+
+    These need phi''' and, in the critical Newton's Jacobian, T-derivatives,
+    which ``phi_d2`` does not give, so they run ``phi_pure`` in torch ops.
+    With grad mode on, both stay differentiable in ``rho``, ``temperature``
+    and the parameters.
+    """
+    keep_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        x = rho if rho.requires_grad else rho.detach().requires_grad_()
+        val = phi_pure(p, temperature, x)
+        (d1,) = torch.autograd.grad(val.sum(), x, create_graph=True)
+        (d2,) = torch.autograd.grad(d1.sum(), x, create_graph=True)
+        (d3,) = torch.autograd.grad(d2.sum(), x, create_graph=keep_graph)
+    if not keep_graph:
+        d2 = d2.detach()
+    return d2, d3
+
+
+def _crit_residual(p: PureParams, u):
+    """Residuals of the pure critical conditions at ``u (B, 2) = [ln rho,
+    ln T]``, as ``(B, 2)``:
+
+        R1 = dp~/drho = 1 + rho phi''
+        R2 = rho d2p~/drho2 = rho (phi'' + rho phi''')
+
+    Both are O(1) near the solution, so one unscaled 2x2 Newton treats them
+    evenly.
+    """
+    e = torch.exp(u)
+    rho, t = e[:, 0], e[:, 1]
+    d2, d3 = _phi_d2_d3(p, t, rho)
+    return torch.stack([1.0 + rho * d2, rho * (d2 + rho * d3)], 1)
+
+
+_CRIT_RES_TOL = 3e-8
+
+
+def _val_and_jac(f, u):
+    """Value ``(B, j)`` and per-row Jacobians ``(B, j, k)`` of a row-wise
+    ``f: (B, k) -> (B, j)``, detached.  Rows are independent, so the
+    gradient of ``f(u)[:, i].sum()`` is row i of every row's Jacobian."""
+    with torch.enable_grad():
+        u = u.detach().requires_grad_()
+        r = f(u)
+        j = r.shape[1]
+        rows = [
+            torch.autograd.grad(r[:, i].sum(), u, retain_graph=i < j - 1)[0]
+            for i in range(j)
+        ]
+    return r.detach(), torch.stack(rows, 1)
+
+
+def _newton_2x2(r, J):
+    """The Newton step ``J^-1 r`` of 2x2 systems, ``(B, 2)``, with the
+    determinant kept off zero."""
+    det = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
+    det = torch.where(det.abs() > 1e-30, det, 1e-30)
+    return torch.stack([
+        (J[:, 1, 1] * r[:, 0] - J[:, 0, 1] * r[:, 1]) / det,
+        (-J[:, 1, 0] * r[:, 0] + J[:, 0, 0] * r[:, 1]) / det,
+    ], 1)
+
+
+@torch.no_grad()
+def pure_critical(params, stats=None):
+    """Critical point ``(rho_c, T_c)`` of pure PC-SAFT fluids, all in f64.
+
+    Solves dp/drho = 0 and d2p/drho2 = 0 by a damped 2x2 Newton in
+    ``(ln rho, ln T)`` per row, from the corresponding-states estimate
+    T0 = eps_k (0.89 + 0.38 m) and the density of least dp~/drho on
+    ``_ETA_GRID`` at T0 (one ``phi_d2`` call at ``(B, 48)``).  Rows freeze
+    at their own exit, as in :func:`_vle_newton`.  If ``stats`` is a dict,
+    it receives the Newton iterations as ``newton`` and ``phi_d2_calls``.
+
+    Returns ``(rho_c, T_c, ok)``.
+    """
+    params = params.detach().contiguous()
+    p = PureParams.from_tensor(params)
+    dev = params.device
+    t0 = p.epsilon_k * (0.89 + 0.38 * p.m)
+    eta_m0 = precompute_pure(p, t0).eta_m
+    rhos = torch.as_tensor(_ETA_GRID, dtype=F64, device=dev)[None, :] / eta_m0[:, None]
+    _, dptildes, _, _ = _eos_pure_multi(_Rows(params, t0.contiguous(), eta_m0), rhos)
+    rho0 = rhos.gather(1, torch.argmin(dptildes, dim=1, keepdim=True))[:, 0]
+    u = torch.stack([torch.log(rho0), torch.log(t0)], 1)
+    lo, hi = torch.log(0.2 * t0), torch.log(5.0 * t0)
+
+    B = params.shape[0]
+    keep = torch.full((B, 2), torch.inf, dtype=F64, device=dev)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_iter = 0
+    while True:
+        active = ~done & (it < _MAX_CRIT_ITER)
+        if not bool(active.any()):
+            break
+        r, J = _val_and_jac(lambda v: _crit_residual(p, v), u)
+        du = _newton_2x2(r, J)
+        converged = r.abs().amax(1) < _CRIT_RES_TOL
+        bad = ~torch.isfinite(du).all(1)
+        step = torch.where(bad[:, None], 0.0, torch.clamp(du, -0.2, 0.2))
+        new = u - step
+        # keep the iterate physical: eta(T) < 0.6, T within a broad band of
+        # the corresponding-states estimate
+        t_new = torch.exp(new[:, 1])
+        d_new = p.sigma * (1.0 - 0.12 * torch.exp(-3.0 * p.epsilon_k / t_new))
+        eta_m_new = PI / 6.0 * p.m * d_new**3
+        new = torch.stack([
+            torch.minimum(new[:, 0], torch.log(0.6 / eta_m_new)),
+            torch.clamp(new[:, 1], lo, hi),
+        ], 1)
+        freeze = done | converged | bad
+        u_new = torch.where(freeze[:, None], u, new)
+        keep_new = torch.where(done[:, None], keep, r)
+
+        a = active[:, None]
+        u = torch.where(a, u_new, u)
+        keep = torch.where(a, keep_new, keep)
+        done = torch.where(active, freeze, done)
+        it = it + active
+        n_iter += 1
+    if stats is not None:
+        stats.update(newton=n_iter, phi_d2_calls=1)
+
+    e = torch.exp(u)
+    rho_c, t_c = e[:, 0], e[:, 1]
+    ok = (
+        torch.isfinite(u).all(1)
+        & (keep.abs().amax(1) < _CRIT_RES_TOL)
+        & (precompute_pure(p, t_c).eta_m * rho_c < 0.7)
+    )
+    return rho_c, t_c, ok

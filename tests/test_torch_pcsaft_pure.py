@@ -290,7 +290,8 @@ def test_host_kernel_dipole_and_association_edges(host_kernel):
 def test_import_loads_no_jax():
     code = (
         "import sys, feos_tpu_torch, feos_tpu_torch.solvers.vle, "
-        "feos_tpu_torch.kernels.build\n"
+        "feos_tpu_torch.solvers.tsolve, feos_tpu_torch.properties, "
+        "feos_tpu_torch.regression, feos_tpu_torch.kernels.build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'feos_tpu'))\n"
         "assert not bad, bad\n"
