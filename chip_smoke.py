@@ -11,7 +11,13 @@ liquid and saturated liquid densities, critical points, boiling
 temperatures (each with a parameter gradient), residual properties, and
 three steps of ``fit_pure``; each reruns its first 2,000 rows on the CPU
 through the plain path and holds the card to it (the fit runs 2,000 rows on
-both).  Every phase raises on failure.
+both).  Phases 11-12 drive binary-mixture PC-SAFT, which launches no kernel
+(its phi evaluations are torch ops): the derivative set (A, p~, mu, v) of
+the 14 golden regimes, and bubble and dew pressures of config 3 of
+``benchmarks/run_all.py`` (a cross-associating pair with kij and eps_AiBj)
+at 4,096 and 100,000 rows and of a non-associating pair at 4,096, each with
+the gradient of sum log p in the parameters and kij, a warm-started rerun,
+and its first 512 rows rerun on the CPU.  Every phase raises on failure.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -36,9 +42,10 @@ import numpy as np
 import torch
 
 from feos_tpu_torch import (
-    PureParams, ResidualProperties, boiling_temperature, critical_point,
-    equilibrium_liquid_density, fit_pure, liquid_density, make_batch, precompute_pure,
-    pure_derivatives, pure_properties, pure_vle, vapor_pressure,
+    PureParams, ResidualProperties, boiling_temperature, bubble_point, critical_point,
+    dew_point, equilibrium_liquid_density, fit_pure, liquid_density, make_batch,
+    mix_derivatives, precompute_pure, pure_derivatives, pure_properties, pure_vle,
+    vapor_pressure,
 )
 from feos_tpu_torch.kernels import build
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
@@ -47,6 +54,7 @@ from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, REDUCED_TO_PA_PER_KT, RGAS
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "pure_helmholtz.json"
+MIX_GOLDEN = ROOT / "tests" / "golden" / "mix_helmholtz.json"
 B = 100_000
 MIN_CONVERGED = 99_990
 KERNEL_BOUND = 1e-11     # max_scaled_error of phi, phi', phi'' vs the plain version
@@ -87,6 +95,23 @@ N_CPU = 2_000
 FIT_STEPS = 3
 VLE_NEAR_CRITICAL = 0.995
 P_NOISE = 1e-14
+# phases 11-12: binary mixtures.  Config 3 of benchmarks/run_all.py and the
+# non-associating pair of tests/test_compat.py, with the JAX package's and the
+# C++ oracle's pressures at T = linspace(140, 160, 4) (config 3) and 150 K,
+# printed to 8 and 2 decimals; rows rerun on the CPU; the golden file's bars
+MIX_SIZES = (4_096, 100_000)
+MIX_REPS = 3
+N_CPU_MIX = 512
+CONFIG3 = [[1, 3.5, 150, 0, 0.02, 1500, 1, 1], [1, 3.5, 200, 0, 0.03, 2500, 1, 1]]
+CONFIG3_KIJ = [-0.15, 1000.0]
+CONFIG3_ANCHORS = {
+    "bubble": [345.42092106, 809.86800143, 1757.14938513, 3562.20472155],
+    "dew": [0.06703126, 0.2419615, 0.77999089, 2.27776462],
+}
+NONASSOC = [[1, 3.5, 150, 0, 0, 0, 0, 0], [1, 3.5, 200, 0, 0, 0, 0, 0]]
+NONASSOC_KIJ = [-0.15, 0.0]
+NONASSOC_ANCHORS = {"bubble": 419901.14, "dew": 221902.57}
+MIX_GOLDEN_ATOL = {"a": 1e-14, "p": 1e-14, "mu": 1e-14, "v": 1e-11}
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -599,6 +624,166 @@ def fit(params_np, temperature, p_sat, rho_l):
             "by_k": {str(k): v for k, v in sorted(by_k.items())}, "steps": FIT_STEPS}
 
 
+def mixture_derivatives(dev):
+    """Phase 11: the mixture derivative set on the card for the 14 golden
+    regimes against the golden values, then the regimes tiled to B rows,
+    timed, and their first N_CPU rows against the CPU."""
+    gold = json.loads(MIX_GOLDEN.read_text())
+    n = len(gold["params"])
+
+    def inputs(rows, d):
+        idx = np.arange(rows) % n
+        return (f64(np.asarray(gold["params"])[idx], d), f64(np.asarray(gold["kij"])[idx], d),
+                f64(np.full(rows, gold["temperature"]), d),
+                f64(np.tile(gold["density"], (rows, 1)), d))
+
+    with torch.no_grad():
+        out = mix_derivatives(*inputs(n, dev))
+    for key, got in zip(("a", "p", "mu", "v"), out):
+        err = float(np.max(np.abs(got.cpu().numpy() - np.asarray(gold[key]))))
+        print(f"phase 11 mixture derivatives vs golden {key}: max abs err {err:.3e} "
+              f"(atol {MIX_GOLDEN_ATOL[key]:g})")
+        check(err <= MIX_GOLDEN_ATOL[key], f"mixture derivatives {key} off the golden values")
+
+    args = inputs(B, dev)
+    with torch.no_grad():
+        mix_derivatives(*args)  # warm-up
+        out, sec, launches, by_k = on_card(lambda: mix_derivatives(*args))
+        cpu_out = mix_derivatives(*inputs(N_CPU, "cpu"))
+    print(f"phase 11 mixture derivatives at B={B} (the 14 regimes tiled): {sec * 1e3:.1f} ms, "
+          f"phi_d2 launches {launches}")
+    check(launches == 0, "the mixture path launched phi_d2")
+    for key, got, want in zip(("A", "p~", "mu", "v"), out, cpu_out):
+        got, want = got[:N_CPU].cpu().flatten(), want.flatten()
+        no = torch.zeros(got.shape, dtype=torch.bool)
+        agree(f"mixture derivatives {key}", no, got, no, want, 1e-12)
+    return {"launches": launches, "by_k": {}, "ms": sec * 1e3}
+
+
+def mixture_run(fn, params, kij, temperature, x1, p0, state0=None, stats=None):
+    """One bubble or dew call with the gradient of sum log p over the
+    converged rows in the parameters and kij."""
+    p = params.detach().requires_grad_()
+    k = kij.detach().requires_grad_()
+    pr, nans, state = fn(p, k, temperature, x1, p0, state0=state0, state_output=True,
+                         stats=stats)
+    log_sum(nans, pr).backward()
+    return nans, pr.detach(), state, p.grad, k.grad
+
+
+def mixture_case(label, fn, system, kij, temperature, dev, anchor=None):
+    """Phase 12, one direction at one size: converged rows, the median of
+    MIX_REPS synchronised calls after a warm-up, loop iterations, a warm
+    start from the first call's state, and the first N_CPU_MIX rows on the
+    CPU (equal masks, p at 1e-10, gradients at 1e-9)."""
+    rows = len(temperature)
+    args = (f64(np.tile(system, (rows, 1, 1)), dev), f64(np.tile(kij, (rows, 1)), dev),
+            f64(temperature, dev), f64(np.full(rows, 0.5), dev), f64(np.full(rows, 1e5), dev))
+    stats = {}
+    (nans, p, state, g_par, g_kij), sec, launches, _ = on_card(
+        lambda: mixture_run(fn, *args, stats=stats))
+    n_ok = int((~nans).sum())
+    times = []
+    for _ in range(MIX_REPS):
+        _, t, _, _ = on_card(lambda: mixture_run(fn, *args))
+        times.append(t)
+    step = statistics.median(times)
+    warm_stats = {}
+    (w_nans, w_p, _, _, _), w_sec, _, _ = on_card(
+        lambda: mixture_run(fn, *args, state0=state, stats=warm_stats))
+    ok = ~nans & ~w_nans
+    warm_rel = float((w_p / p - 1.0).abs()[ok].max())
+    print(f"phase 12 {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
+          f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
+          f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, phi_d2 "
+          f"launches {launches}; warm start {w_sec * 1e3:.1f} ms, loops {warm_stats}, "
+          f"converged {int((~w_nans).sum())}, max |p_warm/p - 1| {warm_rel:.3e} (bound 1e-9)")
+    check(launches == 0, f"{label}: the mixture path launched phi_d2")
+    check(n_ok == rows, f"{label}: only {n_ok} of {rows} rows converged")
+    check(bool(torch.isfinite(g_par).all() & torch.isfinite(g_kij).all()),
+          f"{label}: non-finite gradients")
+    check(bool(w_nans.eq(nans).all()) and warm_rel < 1e-9, f"{label}: warm start")
+    if anchor is not None:
+        err = float((p - anchor).abs().max())
+        # the anchor's last printed decimal, and the solve's 1e-9
+        print(f"  {label} vs its anchor {anchor:.2f} Pa: max abs err {err:.3e} "
+              f"(5e-3 + 1e-9 of it)")
+        check(err < 5e-3 + 1e-9 * anchor, f"{label} off its anchor")
+
+    cpu_args = [x[:N_CPU_MIX].cpu() for x in args]
+    c_nans, c_p, _, c_par, c_kij = mixture_run(fn, *cpu_args)
+    card_nans = nans[:N_CPU_MIX].cpu()
+    agree(f"{label} p", card_nans, p[:N_CPU_MIX].cpu(), c_nans, c_p, 1e-10)
+    no = torch.zeros(N_CPU_MIX * 16, dtype=torch.bool)
+    agree(f"{label} d/dparams", no, g_par[:N_CPU_MIX].cpu().flatten(), no, c_par.flatten(),
+          1e-9, 1e-12 * float(c_par.abs().max()))
+    no = torch.zeros(N_CPU_MIX * 2, dtype=torch.bool)
+    agree(f"{label} d/dkij", no, g_kij[:N_CPU_MIX].cpu().flatten(), no, c_kij.flatten(),
+          1e-9, 1e-12 * float(c_kij.abs().max()))
+    return {"launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+            "converged": n_ok, "rows": rows, "loops": stats, "warm_ms": w_sec * 1e3,
+            "warm_loops": warm_stats}
+
+
+def device_profile(fn):
+    """``(device ms, kernels, host ops)`` of one call of ``fn`` under
+    ``torch.profiler``: the summed time and count of the kernels the card
+    ran, and the aten ops the host dispatched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_us, kernels, host_ops = 0.0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.time_range.elapsed_us()
+            kernels += 1
+        elif e.name.startswith("aten::"):
+            host_ops += 1
+    return device_us / 1e3, kernels, host_ops
+
+
+def mixtures(dev):
+    """Phase 12: bubble and dew pressures with gradients."""
+    t4 = f64(np.linspace(140.0, 160.0, 4), dev)
+    for name, fn in (("bubble", bubble_point), ("dew", dew_point)):
+        with torch.no_grad():
+            p, nans = fn(f64(np.tile(CONFIG3, (4, 1, 1)), dev), f64(np.tile(CONFIG3_KIJ, (4, 1)), dev),
+                         t4, f64(np.full(4, 0.5), dev), f64(np.full(4, 1e5), dev))
+        err = float((p.cpu() - f64(CONFIG3_ANCHORS[name], "cpu")).abs().max())
+        print(f"phase 12 config 3 {name} anchors {p.cpu().tolist()} Pa: max abs err {err:.3e} "
+              f"(the anchors' last decimal, 5e-9)")
+        check(not bool(nans.any()) and err <= 5e-9 + 1e-15 * float(p.max()),
+              f"config 3 {name} anchors")
+    paths = {}
+    for rows in MIX_SIZES:
+        temperature = np.linspace(140.0, 160.0, rows)
+        for name, fn in (("bubble", bubble_point), ("dew", dew_point)):
+            label = f"config 3 {name} B={rows}"
+            paths[label] = mixture_case(label, fn, CONFIG3, CONFIG3_KIJ, temperature, dev)
+    # where the time of the largest call goes: the card's busy time against
+    # the unprofiled median of the same call
+    rows = MIX_SIZES[-1]
+    args = (f64(np.tile(CONFIG3, (rows, 1, 1)), dev), f64(np.tile(CONFIG3_KIJ, (rows, 1)), dev),
+            f64(np.linspace(140.0, 160.0, rows), dev), f64(np.full(rows, 0.5), dev),
+            f64(np.full(rows, 1e5), dev))
+    busy, kernels, host_ops = device_profile(lambda: mixture_run(bubble_point, *args))
+    step = paths[f"config 3 bubble B={rows}"]["ms"]
+    idle = f"idle share {1.0 - busy / step:.3f}" if kernels else "busy time not measured"
+    print(f"phase 12 profile of config 3 bubble B={rows} (solve + backward): card busy "
+          f"{busy:.1f} ms in {kernels} kernels, {host_ops} aten ops on the host; {idle} "
+          f"of the unprofiled median {step:.1f} ms")
+    paths[f"config 3 bubble B={rows}"].update(busy_ms=busy if kernels else None,
+                                              kernels=kernels, host_ops=host_ops)
+    for name, fn in (("bubble", bubble_point), ("dew", dew_point)):
+        label = f"non-associating {name} B={MIX_SIZES[0]}"
+        paths[label] = mixture_case(label, fn, NONASSOC, NONASSOC_KIJ,
+                                    np.full(MIX_SIZES[0], 150.0), dev, NONASSOC_ANCHORS[name])
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one card")
@@ -637,6 +822,10 @@ def main():
     paths["boiling_temperature"] = boiling_temperatures(params, temperature, p_sat, nans_vp)
     paths["pure_properties"] = residual_properties(params, temperature, p_sat, nans_l, rho_l)
     paths["fit_pure"] = fit(params_np, temperature, p_sat, rho_l)
+
+    # phases 11-12: binary mixtures (torch ops only: no phi_d2 launch)
+    paths["mix_derivatives"] = mixture_derivatives(dev)
+    paths.update(mixtures(dev))
 
     shapes = kernel["shapes"]
     ref = shapes["(B, 2)"]  # the most launched shape, with (B, 1)

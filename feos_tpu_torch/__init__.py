@@ -1,10 +1,13 @@
 """feos_tpu_torch: the PyTorch and CUDA port of feos_tpu, for NVIDIA Hopper.
 
-Differentiable pure-component PC-SAFT in f64: the Helmholtz energy and its
-density derivatives, residual properties, and batched vapor pressures,
+Differentiable PC-SAFT in f64.  Pure components: the Helmholtz energy and
+its density derivatives, residual properties, and batched vapor pressures,
 liquid densities, critical points and boiling temperatures with exact
 reverse-mode gradients with respect to all 8 parameters of every row, and
-the parameter fit built on them.
+the parameter fit built on them.  Binary mixtures: the Helmholtz energy
+with its association fixed points and derivative set (A, p~, mu, v), and
+batched bubble and dew pressures with gradients with respect to the
+parameters, kij and epsilon_k_AiBj.
 
 * :class:`PcSaftPure` -- ``nn.Module`` facade holding ``(B, 8)`` parameters;
 * :func:`vapor_pressure`, :func:`liquid_density`,
@@ -12,6 +15,12 @@ the parameter fit built on them.
   :func:`boiling_temperature` -- functional forms, ``(nans, values)``;
 * :func:`pure_properties` -- residual property set at (T, rho);
 * :func:`pure_loss`, :func:`fit_pure` -- parameter regression;
+* :class:`PcSaftMix` -- ``nn.Module`` facade holding ``(B, 2, 8)``
+  parameters and ``(B, 2)`` kij; :func:`bubble_point`, :func:`dew_point`
+  -- functional forms, ``(p, nans)`` as in the JAX package;
+  :func:`mix_derivatives`, :func:`mix_helmholtz_energy_density`;
+* :mod:`feos_tpu_torch.compat` -- the reference's numpy contract
+  (``PcSaft``);
 * :func:`phi_d2` -- the hand-written CUDA kernel behind the solvers' phi
   evaluations (its plain PyTorch version on CPU tensors).
 
@@ -24,6 +33,17 @@ unless the caller asks for the CPU.  The package imports neither jax nor
 from . import units
 from .data import make_batch
 from .kernels.phi_d2 import phi_d2
+from .models.pcsaft_mix import (
+    MixParams,
+    PcSaftMix,
+    bubble_point,
+    dew_point,
+    phi_mix,
+    precompute_mix,
+    static_branches,
+)
+from .models.pcsaft_mix import derivatives as mix_derivatives
+from .models.pcsaft_mix import helmholtz_energy_density as mix_helmholtz_energy_density
 from .models.pcsaft_pure import (
     PcSaftPure,
     PurePre,
@@ -40,31 +60,41 @@ from .models.pcsaft_pure import (
 )
 from .properties import ResidualProperties, pure_properties
 from .regression import FitResult, fit_pure, masked_relative_sse, pure_loss
-from .solvers.vle import npt_density, pure_critical, pure_vle
+from .solvers.vle import mix_vle, npt_density, pure_critical, pure_vle
 
 __all__ = [
     "FitResult",
+    "MixParams",
+    "PcSaftMix",
     "PcSaftPure",
     "PurePre",
     "PureParams",
     "ResidualProperties",
     "boiling_temperature",
+    "bubble_point",
     "critical_point",
+    "dew_point",
     "equilibrium_liquid_density",
     "fit_pure",
     "liquid_density",
     "make_batch",
     "masked_relative_sse",
+    "mix_derivatives",
+    "mix_helmholtz_energy_density",
+    "mix_vle",
     "mu_res_pure",
     "npt_density",
     "phi_d2",
+    "phi_mix",
     "phi_pure",
+    "precompute_mix",
     "precompute_pure",
     "pure_critical",
     "pure_derivatives",
     "pure_loss",
     "pure_properties",
     "pure_vle",
+    "static_branches",
     "units",
     "vapor_pressure",
 ]

@@ -1,10 +1,10 @@
-"""Batched gradient-free pure VLE, density and critical-point solvers in
-PyTorch (f64).
+"""Batched gradient-free pure VLE, density and critical-point solvers, and
+the binary bubble/dew solver, in PyTorch (f64).
 
 Counterpart of the f64 paths of ``feos_tpu/solvers/vle.py`` (``pure_vle``
-and ``npt_density`` with ``mixed_precision=False``, ``pure_critical``): the
-same initialisation, Newton iterations, tolerances and residual acceptance,
-on ``(B, ...)`` tensors.
+and ``npt_density`` with ``mixed_precision=False``, ``pure_critical``,
+``mix_vle`` with ``phi_fn32=None``): the same initialisation, Newton
+iterations, tolerances and residual acceptance, on ``(B, ...)`` tensors.
 
 * The JAX package maps per-row ``lax.while_loop``s with ``vmap``, which
   freezes each row at its own exit.  Here each loop runs over the whole
@@ -12,9 +12,10 @@ on ``(B, ...)`` tensors.
   not done and under its iteration cap, and only active rows take the
   update.  The loop stops when no row is active (one host sync per
   iteration).
-* Every phi evaluation goes through the ``phi_d2`` kernel wrapper, except
-  the critical Newton's, which needs phi''' and T-derivatives and runs
-  ``phi_pure`` in torch ops (as the JAX package runs it outside Pallas).
+* Every pure phi evaluation goes through the ``phi_d2`` kernel wrapper,
+  except the critical Newton's, which needs phi''' and T-derivatives and
+  runs ``phi_pure`` in torch ops (as the JAX package runs it outside
+  Pallas).  The mixture solver takes phi closures in torch ops.
 * Failures are a boolean ``ok`` per row on fixed shapes, never exceptions.
 * Everything runs under ``torch.no_grad()`` on detached inputs; gradients
   re-attach outside, through stationary identities.
@@ -46,6 +47,9 @@ _RES_RTOL = 1e-6
 _NEWTON_RES_RTOL = 1e-9
 _NEWTON_RES_ABS = 1e-12
 _NEWTON_MU_TOL = 1e-9
+# _mix_newton's pressure residual exit: 1e-9 of sum(rho_inc) plus 1e-13 of
+# the bulk's total density
+_MIX_RES_P_ABS = 1e-13
 F64 = torch.float64
 
 # Static packing-fraction grid that brackets the unstable region for the
@@ -477,3 +481,370 @@ def pure_critical(params, stats=None):
         & (precompute_pure(p, t_c).eta_m * rho_c < 0.7)
     )
     return rho_c, t_c, ok
+
+
+# ---------------------------------------------------------------------------
+# Mixture solvers (generic over the Helmholtz-energy-density closures)
+# ---------------------------------------------------------------------------
+
+_N_SS_WARMUP = 16
+_MAX_MIX_ITER = 80
+
+
+def _states_eos(phi_fn, R):
+    """``(p~ (B, k), mu~_res (B, k, n))`` of stacked states ``R (B, k, n)``,
+    detached: one reverse pass over the row sum."""
+    with torch.enable_grad():
+        R = R.detach().requires_grad_()
+        phi = phi_fn(R)
+        (g,) = torch.autograd.grad(phi.sum(), R)
+    return R.sum(-1) + (R * g).sum(-1) - phi.detach(), g
+
+
+def _states_hess(phi_fn, R):
+    """``(p~, mu~_res, H)`` of stacked states ``R (B, k, n)``, detached, with
+    the Hessians ``H (B, k, n, n) = d2phi/drho_i drho_j`` from n more
+    reverse passes over the gradient."""
+    n = R.shape[-1]
+    with torch.enable_grad():
+        R = R.detach().requires_grad_()
+        phi = phi_fn(R)
+        (g,) = torch.autograd.grad(phi.sum(), R, create_graph=True)
+        H = torch.stack([
+            torch.autograd.grad(g[..., j].sum(), R, retain_graph=j < n - 1)[0]
+            for j in range(n)
+        ], -1)
+    g = g.detach()
+    return R.sum(-1) + (R * g).sum(-1) - phi.detach(), g, H
+
+
+def _solve3(J, r):
+    """Cramer solve of 3x3 systems ``J (B, 3, 3)``, ``r (B, 3)``."""
+    c00 = J[:, 1, 1] * J[:, 2, 2] - J[:, 1, 2] * J[:, 2, 1]
+    c01 = J[:, 1, 2] * J[:, 2, 0] - J[:, 1, 0] * J[:, 2, 2]
+    c02 = J[:, 1, 0] * J[:, 2, 1] - J[:, 1, 1] * J[:, 2, 0]
+    det = J[:, 0, 0] * c00 + J[:, 0, 1] * c01 + J[:, 0, 2] * c02
+    det = torch.where(det.abs() > 1e-30, det, 1e-30)
+    x0 = (
+        r[:, 0] * c00
+        + r[:, 1] * (J[:, 0, 2] * J[:, 2, 1] - J[:, 0, 1] * J[:, 2, 2])
+        + r[:, 2] * (J[:, 0, 1] * J[:, 1, 2] - J[:, 0, 2] * J[:, 1, 1])
+    )
+    x1 = (
+        r[:, 0] * c01
+        + r[:, 1] * (J[:, 0, 0] * J[:, 2, 2] - J[:, 0, 2] * J[:, 2, 0])
+        + r[:, 2] * (J[:, 0, 2] * J[:, 1, 0] - J[:, 0, 0] * J[:, 1, 2])
+    )
+    x2 = (
+        r[:, 0] * c02
+        + r[:, 1] * (J[:, 0, 1] * J[:, 2, 0] - J[:, 0, 0] * J[:, 2, 1])
+        + r[:, 2] * (J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0])
+    )
+    return torch.stack([x0, x1, x2], 1) / det[:, None]
+
+
+class MixLimits(NamedTuple):
+    """Per-row branch limits of the Newton projection, ``(B,)`` each."""
+
+    ln_inc_min: torch.Tensor
+    ln_inc_max: torch.Tensor
+    ln_bulk_min: torch.Tensor
+    ln_bulk_max: torch.Tensor
+
+
+def _mix_limits(phi_fn, z, p0, md3, incipient_is_vapor):
+    """Packing-fraction grid scan of p~(rho; z) per row.
+
+    Detects the van der Waals loop by differences along ``_ETA_GRID``,
+    caps the pressure estimate at half the vapor-spinodal pressure, and
+    returns ``(p0_capped, MixLimits)``: the incipient phase's limits are
+    widened by the extreme per-component size ratio, since it rotates its
+    composition away from the bulk's z.
+    """
+    B = z.shape[0]
+    inf = torch.full((B,), torch.inf, dtype=F64, device=z.device)
+    z_md3 = (z * md3).sum(-1)
+    eta_factor = PI / 6.0 * z_md3
+
+    grid = torch.as_tensor(_ETA_GRID, dtype=F64, device=z.device)
+    rho_grid = grid[None, :] / eta_factor[:, None]
+    pt_grid, _ = _states_eos(phi_fn, z[:, None, :] * rho_grid[:, :, None])
+    # mechanical instability between grid points i and i+1
+    unstable = pt_grid[:, 1:] < pt_grid[:, :-1]
+    has_loop = unstable.any(1)
+    seen = torch.cat([torch.zeros_like(unstable[:, :1]), unstable.cumsum(1) > 0], 1)
+    p_sv = torch.where(seen, -torch.inf, pt_grid).amax(1)
+    p0 = torch.where(has_loop, torch.minimum(p0, 0.5 * p_sv), p0)
+    p0 = torch.clamp(p0, min=1e-30)
+
+    k_seg = unstable.shape[1]
+    idx = torch.arange(k_seg, device=z.device)
+    first_u = torch.where(unstable, idx, k_seg).amin(1)
+    last_u = torch.where(unstable, idx, -1).amax(1)
+    ln_grid = torch.log(rho_grid)
+
+    def at(i):
+        return ln_grid.gather(1, torch.clamp(i, max=k_seg)[:, None])[:, 0]
+
+    ln_rho_sv = torch.where(has_loop, at(first_u), inf)
+    ln_rho_sl = torch.where(has_loop, at(last_u + 1), -inf)
+    if incipient_is_vapor:
+        # incipient vapor rotates toward smaller molecules: the spinodal cap
+        # at equal eta sits at a higher molar density
+        cap = ln_rho_sv + torch.log(z_md3 / md3.amin(-1))
+        return p0, MixLimits(-inf, cap, ln_rho_sl, inf)
+    # incipient liquid rotates toward larger molecules: the branch floor at
+    # equal eta sits at a lower molar density
+    floor = ln_rho_sl + torch.log(z_md3 / md3.amax(-1))
+    return p0, MixLimits(floor, inf, -inf, ln_rho_sv)
+
+
+def _mix_init(phi_q, phi_exact, z, p0, md3, incipient_is_vapor, stats):
+    """Cold start of the mixture Newton, per row:
+
+    1. the grid scan (:func:`_mix_limits`);
+    2. NPT solves of both phase branches at p0 in one 2-lane Newton loop
+       (lane 0 liquid from eta = 0.5, lane 1 vapor from rho = p0), each
+       step's slope d p~/d ln rho from the exact phi's Hessian;
+    3. ``_N_SS_WARMUP`` successive-substitution steps on the incipient
+       fugacities (dew: with a bulk re-estimate each step).
+
+    Returns ``(u0 (B, n+1) = [ln rho_inc, ln rho_bulk_t], limits, init_ok)``.
+    """
+    dev = z.device
+    z_md3 = (z * md3).sum(-1)
+    eta_factor = PI / 6.0 * z_md3
+
+    p0, limits = _mix_limits(phi_q, z, p0, md3, incipient_is_vapor)
+
+    # -- branch NPT solves (lane 0 = liquid, lane 1 = vapor) ---------------
+    branch_sign = torch.tensor([1.0, -1.0], dtype=F64, device=dev)
+    lr_cap = torch.log(0.74 / eta_factor)[:, None]
+    B = z.shape[0]
+    lr = torch.log(torch.stack([0.5 / eta_factor, p0], 1))
+    keep = torch.stack([torch.full((B, 2), torch.inf, dtype=F64, device=dev),
+                        torch.ones((B, 2), dtype=F64, device=dev)])
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros((B, 2), dtype=torch.bool, device=dev)
+    n_npt = 0
+    while True:
+        active = (~done).any(1) & (it < _MAX_NPT_ITER)
+        if not bool(active.any()):
+            break
+        R = z[:, None, :] * torch.exp(lr)[:, :, None]
+        pt, _, H = _states_hess(phi_exact, R)
+        # d p~ / d ln rho along the ray R = z rho
+        dpt = (R * (1.0 + (R[..., :, None] * H).sum(-2))).sum(-1)
+        r = pt - p0[:, None]
+        pos = dpt > 0.0
+        newton = r / torch.where(pos, dpt, 1.0)
+        step = torch.where(pos, torch.clamp(newton, -0.5, 0.5), -branch_sign * 0.2)
+        converged = (newton.abs() < _STEP_TOL) & pos
+        bad = ~torch.isfinite(step)
+        step = torch.where(bad, 0.0, step)
+        freeze = done | converged | bad
+        lr_new = torch.where(freeze, lr, torch.minimum(lr - step, lr_cap))
+        keep_new = torch.where(done, keep, torch.stack([pt, dpt]))
+
+        a = active[:, None]
+        lr = torch.where(a, lr_new, lr)
+        keep = torch.where(a, keep_new, keep)
+        done = torch.where(a, freeze, done)
+        it = it + active
+        n_npt += 1
+    pt_f, dpt_f = keep
+    pos = dpt_f > 0.0
+    npt_ok = pos & ((pt_f - p0[:, None]).abs() / torch.where(pos, dpt_f, 1.0)
+                    < max(_STEP_TOL * 1e3, 1e-6))
+
+    i_bulk = 0 if incipient_is_vapor else 1
+    rho_bulk_t0 = torch.exp(lr[:, i_bulk])
+    rho_inc_t0 = torch.exp(lr[:, 1 - i_bulk])
+    init_ok = npt_ok[:, i_bulk] & torch.isfinite(rho_bulk_t0)
+
+    # -- successive-substitution warmup ------------------------------------
+    ln_i = torch.log(z * rho_inc_t0[:, None])
+    ln_bt = torch.log(rho_bulk_t0)
+    for _ in range(_N_SS_WARMUP):
+        R = torch.stack([torch.exp(ln_i), z * torch.exp(ln_bt)[:, None]], 1)
+        _, g = _states_eos(phi_q, R)
+        target = torch.log(z) + ln_bt[:, None] + g[:, 1] - g[:, 0]
+        if incipient_is_vapor:
+            # vapor: the fugacity fixed point is a contraction
+            ln_i = ln_i + torch.clamp(target - ln_i, -1.0, 1.0)
+        else:
+            # liquid incipient: rotate only the composition and pin the
+            # packing fraction at the NPT liquid's; re-estimate the bulk
+            # (vapor) total from the ideal-vapor identity
+            ln_x = target - torch.logsumexp(target, -1, keepdim=True)
+            eta_corr = z_md3 / (torch.exp(ln_x) * md3).sum(-1)
+            mu_inc = ln_i + g[:, 0]
+            ln_i = ln_x + torch.log(rho_inc_t0 * eta_corr)[:, None]
+            ln_bt = torch.minimum(
+                torch.logsumexp(torch.clamp(mu_inc, -78.0, 78.0), -1), limits.ln_bulk_max
+            )
+    if stats is not None:
+        stats.update(npt=n_npt, ss=_N_SS_WARMUP)
+    return torch.cat([ln_i, ln_bt[:, None]], 1), limits, init_ok
+
+
+def _mix_newton(phi_q, phi_exact, z, u0, limits: MixLimits):
+    """Damped full Newton on ``u = [ln rho_inc (n), ln rho_bulk_t]`` per row.
+
+    The residual ``[mu~_i(inc) - mu~_i(bulk), p~(inc) - p~(bulk)]`` comes
+    from the Q-form phi (exact first derivatives).  The Jacobian is
+    assembled from the exact phi's f64 Hessians (the Q form's second
+    derivatives miss the dX/drho term, which stalls Newton at strong
+    association):
+
+        J[i, j] = H_inc[i, j] rho_inc[j] + delta_ij           (j < n)
+        J[i, n] = -(sum_j H_bulk[i, j] rho_bulk[j] + 1)
+        J[n, j] = rho_inc[j] (1 + sum_i rho_inc[i] H_inc[i, j])
+        J[n, n] = -sum_j rho_bulk[j] (1 + sum_i rho_bulk[i] H_bulk[i, j])
+
+    A row exits on step size, on residual, or on a stall at the evaluation
+    noise floor (its merit not below 0.9x its best for 3 armed
+    iterations); rows that exit on step or residual apply the final step,
+    stalled rows freeze in place.  The last evaluated residual is carried.
+
+    Returns ``(u, out (B, n+4) = [residual (n+1), p~_inc, p~_bulk,
+    pressure-row stiffness], iterations)``.
+    """
+    B, n1 = u0.shape
+    n = n1 - 1
+    dev = u0.device
+    eye = torch.eye(n, dtype=F64, device=dev)
+
+    def project(u):
+        # keep each phase on its branch (outside the unstable region)
+        ln_inc_tot = torch.logsumexp(u[:, :n], -1)
+        clipped = torch.minimum(torch.maximum(ln_inc_tot, limits.ln_inc_min),
+                                limits.ln_inc_max)
+        bulk = torch.minimum(torch.maximum(u[:, n], limits.ln_bulk_min), limits.ln_bulk_max)
+        return torch.cat([u[:, :n] + (clipped - ln_inc_tot)[:, None], bulk[:, None]], 1)
+
+    u = u0
+    out_keep = torch.full((B, n + 4), torch.inf, dtype=F64, device=dev)
+    best = torch.full((B,), torch.inf, dtype=F64, device=dev)
+    stale = torch.zeros(B, dtype=torch.int64, device=dev)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_iter = 0
+    while True:
+        active = ~done & (it < _MAX_MIX_ITER)
+        if not bool(active.any()):
+            break
+        e = torch.exp(u)
+        r_inc, r_bulk = e[:, :n], z * e[:, n:]
+        R = torch.stack([r_inc, r_bulk], 1)
+        pt, g = _states_eos(phi_q, R)
+        mu = torch.log(R) + g
+        _, _, H = _states_hess(phi_exact, R)
+        h_inc, h_bulk = H[:, 0], H[:, 1]
+        j_mu_inc = h_inc * r_inc[:, None, :] + eye
+        j_mu_bulk = -((h_bulk * r_bulk[:, None, :]).sum(-1) + 1.0)
+        j_p_inc = r_inc * (1.0 + (r_inc[:, :, None] * h_inc).sum(1))
+        j_p_bulk = -(r_bulk * (1.0 + (r_bulk[:, :, None] * h_bulk).sum(1))).sum(-1)
+        J = torch.cat([torch.cat([j_mu_inc, j_mu_bulk[:, :, None]], 2),
+                       torch.cat([j_p_inc, j_p_bulk[:, None]], 1)[:, None, :]], 1)
+        # pressure-row stiffness |d p~/d ln rho| of the stiffer phase: the
+        # absolute evaluation-noise scale of the pressure residual
+        stiff = torch.maximum(J[:, n, n].abs(), J[:, n, :n].abs().sum(-1))
+        out = torch.cat([mu[:, 0] - mu[:, 1], (pt[:, 0] - pt[:, 1])[:, None], pt, stiff[:, None]], 1)
+        r = out[:, : n + 1]
+        step = _solve3(J, r) if n == 2 else torch.linalg.solve(J, r)
+        p_allow = (_NEWTON_RES_RTOL * e[:, :n].sum(-1)
+                   + _MIX_RES_P_ABS * e[:, n])
+        res_mu = r[:, :n].abs().amax(-1)
+        res_ok = (res_mu < _NEWTON_MU_TOL) & (r[:, n].abs() < p_allow)
+        merit = torch.maximum(res_mu / _NEWTON_MU_TOL, r[:, n].abs() / p_allow)
+        improved = merit < 0.9 * best
+        armed = merit < 1e3
+        stale_new = torch.where(improved, 0, torch.where(armed, stale + 1, stale))
+        best_new = torch.minimum(best, merit)
+        stalled = stale_new >= 3
+        converged = (step.abs().amax(-1) < _STEP_TOL) | res_ok | stalled
+        bad = ~torch.isfinite(step).all(-1)
+        step = torch.where(bad[:, None], 0.0, torch.clamp(step, -0.5, 0.5))
+        # non-stalled active rows take the computed step, including the
+        # final step on the iteration they converge
+        apply = ~done & ~bad & ~stalled
+        u_new = torch.where(apply[:, None], project(u - step), u)
+        out_new = torch.where(done[:, None], out_keep, out)
+
+        a = active[:, None]
+        u = torch.where(a, u_new, u)
+        out_keep = torch.where(a, out_new, out_keep)
+        best = torch.where(active, best_new, best)
+        stale = torch.where(active, stale_new, stale)
+        done = torch.where(active, done | converged | bad, done)
+        it = it + active
+        n_iter += 1
+    return u, out_keep, n_iter
+
+
+@torch.no_grad()
+def mix_vle(phi_q, phi_exact, z, p0, md3, incipient_is_vapor: bool, u0_init=None,
+            stats=None):
+    """Bubble/dew-point solve of mixtures, all in f64, detached.
+
+    The bulk phase has the known mole fractions ``z (B, n)`` (liquid for
+    bubble, vapor for dew); the unknowns are the incipient phase's partial
+    densities and the bulk's total density, in log space.  ``phi_q`` and
+    ``phi_exact`` map ``(B, k, n)`` densities to phi ``(B, k)``: the Q-form
+    phi for residuals and first derivatives, the exact phi for Hessians.
+    ``p0 (B,)`` is the reduced pressure estimate and ``md3 (B, n)`` = m d^3.
+
+    With ``u0_init (B, n+1)``, a converged log-state from a nearby solve,
+    only the grid scan runs (for the projection limits) before the Newton;
+    rows whose warm state is not finite fail their mask.  If ``stats`` is
+    a dict, it receives each loop's iterations.
+
+    Returns ``(rho_inc (B, n), rho_bulk (B, n), ok (B,), p~_eq (B,))``, the
+    reduced pressure from the carried residual state on the vapor side.
+    """
+    B, n = z.shape
+    if u0_init is not None:
+        _, limits = _mix_limits(phi_q, z, p0, md3, incipient_is_vapor)
+        u0 = u0_init.detach().to(F64)
+        init_ok = torch.isfinite(u0).all(-1)
+        # a NaN warm state would poison its row's Newton; park such rows at
+        # a harmless interior point and let init_ok fail them
+        u0 = torch.where(init_ok[:, None], u0, 0.0)
+        if stats is not None:
+            stats.update(npt=0, ss=0)
+    else:
+        u0, limits, init_ok = _mix_init(phi_q, phi_exact, z, p0, md3,
+                                        incipient_is_vapor, stats)
+    u, out, n_newton = _mix_newton(phi_q, phi_exact, z, u0, limits)
+    if stats is not None:
+        stats.update(newton=n_newton)
+
+    e_u = torch.exp(u)
+    rho_inc = e_u[:, :n]
+    rho_bulk = z * e_u[:, n:]
+    r = out[:, : n + 1]
+    # the vapor side's p~ is well-conditioned; the liquid's is a
+    # cancellation of large terms
+    pt_eq = out[:, n + 1] if incipient_is_vapor else out[:, n + 2]
+    scale_p = rho_inc.sum(-1)
+    res_mu = r[:, :n].abs().amax(-1)
+    # absolute allowance for the liquid-pressure cancellation noise, from
+    # the carried pressure-row stiffness (the JAX package's calibration)
+    p_noise = 6e-12 * out[:, n + 3]
+    res_p = r[:, n].abs() / (scale_p + p_noise / _RES_RTOL)
+    trivial = (torch.log(scale_p) - u[:, n]).abs() < 1e-5
+    if incipient_is_vapor:
+        ordered = scale_p < rho_bulk.sum(-1)
+    else:
+        ordered = scale_p > rho_bulk.sum(-1)
+    ok = (
+        init_ok
+        & torch.isfinite(u).all(-1)
+        & (res_mu < 1e-7)
+        & (res_p < _RES_RTOL)
+        & ~trivial
+        & ordered
+        & (pt_eq > 0.0)
+    )
+    return rho_inc, rho_bulk, ok, pt_eq
