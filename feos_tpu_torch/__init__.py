@@ -38,9 +38,7 @@ from .models.pcsaft_mix import (
     PcSaftMix,
     bubble_point,
     dew_point,
-    phi_mix,
     precompute_mix,
-    static_branches,
 )
 from .models.pcsaft_mix import derivatives as mix_derivatives
 from .models.pcsaft_mix import helmholtz_energy_density as mix_helmholtz_energy_density
@@ -85,7 +83,6 @@ __all__ = [
     "mu_res_pure",
     "npt_density",
     "phi_d2",
-    "phi_mix",
     "phi_pure",
     "precompute_mix",
     "precompute_pure",
@@ -94,7 +91,6 @@ __all__ = [
     "pure_loss",
     "pure_properties",
     "pure_vle",
-    "static_branches",
     "units",
     "vapor_pressure",
 ]

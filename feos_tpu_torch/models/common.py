@@ -117,39 +117,13 @@ def phi_dipole_pre(dp: DipolePre, rho, etas, col):
     return phi2 / (1.0 - ratio)
 
 
-def pair_integral(mij1, mij2, etas, eps_ij_t):
-    """Dipole pair integral J2 at ``etas (..., 7)`` = [1, eta, ..., eta^6];
-    the other arguments broadcast against ``etas[..., 0]``."""
-    cAD, cBD = (torch.as_tensor(c, dtype=F64, device=etas.device) for c in (AD, BD))
-    a = cAD[:, 0] + mij1[..., None] * cAD[:, 1] + mij2[..., None] * cAD[:, 2]
-    b = cBD[:, 0] + mij1[..., None] * cBD[:, 1] + mij2[..., None] * cBD[:, 2]
-    return ((eps_ij_t[..., None] * b + a) * etas[..., :5]).sum(-1)
-
-
-def triplet_integral(mijk1, mijk2, etas):
-    """Dipole triplet integral J3 at ``etas (..., 7)``."""
-    cCD = torch.as_tensor(CD, dtype=F64, device=etas.device)
-    c = cCD[:, 0] + mijk1[..., None] * cCD[:, 1] + mijk2[..., None] * cCD[:, 2]
-    return (c * etas[..., :4]).sum(-1)
-
-
-def association_strength(i, j, temperature, sigma, kappa_ab, epsilon_k_ab, d, zeta2,
-                         zeta3_m1, epsilon_k_aibj=None):
-    """Association strength Delta_AiBj for ``(B, n)`` parameter columns;
-    ``zeta2`` and ``zeta3_m1`` broadcast against ``(B,)``.  A nonzero
-    ``epsilon_k_aibj`` ``(B,)`` overrides the arithmetic-mean cross energy
-    for i != j.  Callers sanitise ``kappa_ab`` on masked rows (kappa > 0)
-    so that the sqrt has finite gradients."""
-    dd = d[:, i] * d[:, j] / (d[:, i] + d[:, j])
-    tfac = assoc_strength_tfactor(i, j, temperature, sigma, kappa_ab, epsilon_k_ab,
-                                  epsilon_k_aibj)
-    return assoc_strength_from_tfactor(tfac, dd, zeta2, zeta3_m1)
-
-
 def assoc_strength_tfactor(i, j, temperature, sigma, kappa_ab, epsilon_k_ab,
                            epsilon_k_aibj=None):
-    """Density-independent factor of :func:`association_strength`:
-    sigma_ij^3 kappa_ij (exp(eps_ij/T) - 1), ``(B,)``."""
+    """Density-independent factor of the association strength Delta_AiBj
+    for ``(B, n)`` parameter columns: sigma_ij^3 kappa_ij (exp(eps_ij/T) -
+    1), ``(B,)``.  A nonzero ``epsilon_k_aibj`` ``(B,)`` overrides the
+    arithmetic-mean cross energy for i != j.  Callers sanitise ``kappa_ab``
+    on masked rows (kappa > 0) so that the sqrt has finite gradients."""
     sigma3_kappa = (sigma[:, i] * sigma[:, j]) ** 1.5 * torch.sqrt(
         kappa_ab[:, i] * kappa_ab[:, j]
     )

@@ -10,9 +10,10 @@ density is ``(B, ..., n)``: row ``b`` of every state uses row ``b`` of the
 parameters.  Everything is ``torch.float64`` on the device of the inputs.
 
 * The dipolar and the three association regimes are computed on every row
-  of a regime some row can reach (:func:`static_branches`, once per call),
-  with the JAX package's sanitisation of masked rows, and selected per row
-  with ``torch.where``.
+  of a regime some row can reach (``MixPre.branches``, found once by
+  :func:`precompute_mix` from the same parameters as the row masks), with
+  the JAX package's sanitisation of masked rows, and selected per row with
+  ``torch.where``.
 * The association fixed points are ``torch.autograd.Function``\\ s with
   exact implicit derivatives of every order
   (:mod:`feos_tpu_torch.ops.association`).
@@ -74,6 +75,10 @@ def _f64(x, device):
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
 
 
+# the phi regimes beyond hard sphere, chain and dispersion
+BRANCHES = ("dipole", "self", "cross", "induced")
+
+
 class MixPre(NamedTuple):
     """Density-independent mixture quantities at fixed (parameters, kij, T):
     the JAX package's ``MixPre`` with the batch first.  Computed once per
@@ -98,6 +103,7 @@ class MixPre(NamedTuple):
     self_m: torch.Tensor   # (B,) bool regime masks (parameter-only)
     cross_m: torch.Tensor
     induced_m: torch.Tensor
+    branches: frozenset    # the regimes some row reaches (BRANCHES names)
 
 
 def _pairwise(f, n):
@@ -153,37 +159,18 @@ def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
         i, j, temperature, sigma, kappa_i, p.epsilon_k_ab), n)
     dd = d[:, :, None] * d[:, None, :] / (d[:, :, None] + d[:, None, :])
 
+    # the reachable regimes, from the masks themselves (one host sync)
+    reached = torch.stack([dipolar, self_m, cross_m, induced_m]).any(-1).tolist()
+    branches = frozenset(name for name, on in zip(BRANCHES, reached) if on)
+
     return MixPre(
         m=m, na=p.na, nb=p.nb,
         md1=m * d, md2=m * d * d, md3=m * d * d * d, d=d,
         e1=e1, e2=e2, dip=dip, dipolar=dipolar,
         self_st=self_st, self_da=self_da,
         cross_t=cross_t, ind_t=ind_t, dd=dd,
-        self_m=self_m, cross_m=cross_m, induced_m=induced_m,
+        self_m=self_m, cross_m=cross_m, induced_m=induced_m, branches=branches,
     )
-
-
-ALL_BRANCHES = frozenset({"dipole", "self", "cross", "induced"})
-
-
-def static_branches(parameters) -> frozenset:
-    """The phi branches some row of a ``(B, n, 8)`` parameter batch can
-    reach (one host sync for a device tensor).  Each regime depends only on
-    the parameters (mu, na, nb); :func:`phi_mix_pre` skips the others."""
-    arr = np.asarray(torch.as_tensor(parameters).detach().cpu(), dtype=np.float64)
-    mu, na, nb = arr[..., 3], arr[..., 6], arr[..., 7]
-    out = set()
-    if np.any(mu != 0.0):
-        out.add("dipole")
-    n_assoc = np.count_nonzero(na + nb, axis=-1)
-    n_self = np.count_nonzero(na * nb, axis=-1)
-    if np.any((n_assoc == 1) & (n_self == 1)):
-        out.add("self")
-    if np.any((n_assoc == 2) & (n_self == 2)):
-        out.add("cross")
-    if np.any((n_assoc == 2) & (n_self == 1)):
-        out.add("induced")
-    return frozenset(out)
 
 
 def _columns(density):
@@ -197,15 +184,14 @@ def _columns(density):
     return col
 
 
-def phi_mix_pre(pre: MixPre, density, assoc_q_form: bool = False,
-                branches=ALL_BRANCHES):
+def phi_mix_pre(pre: MixPre, density, assoc_q_form: bool = False):
     """Reduced residual Helmholtz energy density at ``density (B, ..., n)``
     from :class:`MixPre`; returns ``(B, ...)``.
 
     With ``assoc_q_form`` the association term is the Michelsen Q function
     at detached site fractions: values and first derivatives are exact,
     second derivatives miss the dX/drho term (see the JAX package's
-    ``phi_mix``).  ``branches`` drops the regimes no row can reach.
+    ``phi_mix``).  Regimes no row reaches (``pre.branches``) are skipped.
     """
     col = _columns(density)
     rho = density
@@ -263,7 +249,7 @@ def phi_mix_pre(pre: MixPre, density, assoc_q_form: bool = False,
 
     phi = hs + hc + disp
 
-    if "dipole" in branches:
+    if "dipole" in pre.branches:
         dip = phi_dipole_pre(pre.dip, rho, etas, col)
         phi = phi + torch.where(col(pre.dipolar), dip, 0.0)
 
@@ -271,20 +257,10 @@ def phi_mix_pre(pre: MixPre, density, assoc_q_form: bool = False,
     for name, mask, term in (("self", pre.self_m, _phi_self_assoc),
                              ("cross", pre.cross_m, _phi_cross_assoc),
                              ("induced", pre.induced_m, _phi_induced_assoc)):
-        if name in branches:
+        if name in pre.branches:
             a = term(pre, rho, zeta2, zeta3_m1, col, assoc_q_form)
             phi = phi + torch.where(col(mask), a, 0.0)
     return phi
-
-
-def phi_mix(p: MixParams, kij, epsilon_k_aibj, temperature, density,
-            assoc_q_form: bool = False, branches=ALL_BRANCHES):
-    """Reduced residual Helmholtz energy density of a mixture: ``(B, n)``
-    parameter columns, ``(B,)`` kij, eps_AiBj and T, ``(B, ..., n)``
-    densities.  Thin wrapper over :func:`precompute_mix` +
-    :func:`phi_mix_pre`."""
-    pre = precompute_mix(p, kij, epsilon_k_aibj, temperature)
-    return phi_mix_pre(pre, density, assoc_q_form=assoc_q_form, branches=branches)
 
 
 def _q_f1(x):
@@ -406,24 +382,22 @@ def _pre(parameters, kij, temperature):
     return precompute_mix(MixParams.from_tensor(parameters), k, e, temperature)
 
 
-def helmholtz_energy_density(parameters, kij, temperature, density, branches=None):
+def helmholtz_energy_density(parameters, kij, temperature, density):
     """Batched phi (reference ``PcSaftMix.helmholtz_energy_density``):
     ``parameters (B, n, 8)``, ``kij (B, 2)`` or ``None``, ``temperature
     (B,)``, ``density (B, ..., n)`` in A^-3."""
-    br = static_branches(parameters) if branches is None else branches
-    return phi_mix_pre(_pre(parameters, kij, temperature), density, branches=br)
+    return phi_mix_pre(_pre(parameters, kij, temperature), density)
 
 
-def derivatives(parameters, kij, temperature, density, branches=None):
+def derivatives(parameters, kij, temperature, density):
     """Batched ``(A, p~, mu_i, v_i)`` at ``density (B, n)``
     (reference feos_torch/pcsaft_mix.py:395-420)."""
-    br = static_branches(parameters) if branches is None else branches
     pre = _pre(parameters, kij, temperature)
-    return pressure_set(lambda r: phi_mix_pre(pre, r, branches=br), density)
+    return pressure_set(lambda r: phi_mix_pre(pre, r), density)
 
 
 def solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble,
-                    branches=None, state0=None, stats=None):
+                    state0=None, stats=None):
     """The detached bubble/dew solve: ``(rho_inc (B, 2), rho_bulk (B, 2), ok
     (B,), p~_eq (B,))`` for ``(B, 2, 8)`` parameters, ``(B, 2)`` kij (or
     ``None``), ``(B,)`` temperatures and reduced pressure estimates, and
@@ -431,20 +405,18 @@ def solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble,
     :func:`feos_tpu_torch.solvers.vle.mix_vle`."""
     if parameters.dim() != 3 or parameters.shape[1] != 2:
         raise ValueError("bubble and dew points are binary only: parameters must be (B, 2, 8)")
-    br = static_branches(parameters) if branches is None else branches
     pre = _pre(parameters.detach(), None if kij is None else kij.detach(),
                temperature.detach())
     return mix_vle(
-        lambda r: phi_mix_pre(pre, r, assoc_q_form=True, branches=br),
-        lambda r: phi_mix_pre(pre, r, branches=br),
+        lambda r: phi_mix_pre(pre, r, assoc_q_form=True),
+        lambda r: phi_mix_pre(pre, r),
         molefracs.detach(), p_red.detach(), pre.md3, incipient_is_vapor=bubble,
         u0_init=state0, stats=stats,
     )
 
 
 def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubble,
-                        branches=None, full_output=False, state0=None,
-                        state_output=False, stats=None):
+                        full_output=False, state0=None, state_output=False, stats=None):
     """Shared bubble/dew implementation with stationary re-attachment.
 
     The detached solve (:func:`solve_incipient`) gives the coexisting
@@ -468,11 +440,10 @@ def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubbl
     if molefracs.dim() == 1:
         # the reference's binary convention: x1 per row
         molefracs = torch.stack([molefracs, 1.0 - molefracs], -1)
-    br = static_branches(parameters) if branches is None else branches
 
     p_red = pressure / temperature * PA_PER_KT_TO_REDUCED
     rho_inc, rho_bulk, ok, pt_eq = solve_incipient(
-        parameters, kij, temperature, molefracs, p_red, bubble, br, state0, stats)
+        parameters, kij, temperature, molefracs, p_red, bubble, state0, stats)
     # sanitise failed rows: NaN or zero densities would give NaN
     # derivatives, which the final torch.where cannot repair
     rho_inc = torch.where(ok[:, None], rho_inc, 1e-5)
@@ -483,7 +454,7 @@ def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubbl
         x is not None and x.requires_grad for x in (parameters, kij, temperature)
     ):
         pre = _pre(parameters, kij, temperature)
-        ident = _identity(lambda r: phi_mix_pre(pre, r, branches=br), rho_inc, rho_bulk)
+        ident = _identity(lambda r: phi_mix_pre(pre, r), rho_inc, rho_bulk)
         pt_eq = pt_eq + (ident - ident.detach())
     pressure_out = torch.where(ok, pt_eq * temperature * REDUCED_TO_PA_PER_KT, torch.nan)
     out = (pressure_out, ~ok)
@@ -510,7 +481,7 @@ def _identity(phi_fn, r_inc, r_bulk):
     return -(a_inc + p_b * v_bulk + g_bulk - 1.0) / (1.0 / rho_inc_t - v_bulk)
 
 
-def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure, branches=None,
+def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure,
                  full_output=False, state0=None, state_output=False, stats=None):
     """Batched bubble-point pressure in Pa with gradients in the parameters,
     kij and T (reference feos_torch/pcsaft_mix.py:422-444).
@@ -525,16 +496,16 @@ def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure, branc
     dict, it receives the solver's loop iterations.
     """
     return _incipient_property(parameters, kij, temperature, liquid_molefracs, pressure,
-                               True, branches, full_output, state0, state_output, stats)
+                               True, full_output, state0, state_output, stats)
 
 
-def dew_point(parameters, kij, temperature, vapor_molefracs, pressure, branches=None,
+def dew_point(parameters, kij, temperature, vapor_molefracs, pressure,
               full_output=False, state0=None, state_output=False, stats=None):
     """Batched dew-point pressure in Pa (reference
     feos_torch/pcsaft_mix.py:446-468); ``full_output`` adds the liquid
     composition.  See :func:`bubble_point`."""
     return _incipient_property(parameters, kij, temperature, vapor_molefracs, pressure,
-                               False, branches, full_output, state0, state_output, stats)
+                               False, full_output, state0, state_output, stats)
 
 
 class PcSaftMix(nn.Module):
@@ -543,8 +514,7 @@ class PcSaftMix(nn.Module):
 
     Holds the ``(B, 2, 8)`` parameters and the ``(B, 2)`` ``kij`` =
     ``[k_ij, epsilon_k_AiBj]`` (zeros when ``None``) as ``nn.Parameter``\\ s
-    on ``device``, the card unless the caller asks for the CPU, and the
-    phi branches the rows can reach.
+    on ``device``, the card unless the caller asks for the CPU.
     """
 
     def __init__(self, parameters, kij=None, device="cuda"):
@@ -555,27 +525,26 @@ class PcSaftMix(nn.Module):
         self.params = nn.Parameter(params)
         kij = np.zeros((params.shape[0], 2)) if kij is None else kij
         self.kij = nn.Parameter(_f64(kij, device))
-        self.branches = static_branches(params)
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=F64, device=self.params.device)
 
     def helmholtz_energy_density(self, temperature, density):
         return helmholtz_energy_density(self.params, self.kij, self._tensor(temperature),
-                                        self._tensor(density), self.branches)
+                                        self._tensor(density))
 
     def derivatives(self, temperature, density):
         return derivatives(self.params, self.kij, self._tensor(temperature),
-                           self._tensor(density), self.branches)
+                           self._tensor(density))
 
     def bubble_point(self, temperature, liquid_molefracs, pressure, full_output=False,
                      state0=None, state_output=False, stats=None):
         return bubble_point(self.params, self.kij, self._tensor(temperature),
                             self._tensor(liquid_molefracs), self._tensor(pressure),
-                            self.branches, full_output, state0, state_output, stats)
+                            full_output, state0, state_output, stats)
 
     def dew_point(self, temperature, vapor_molefracs, pressure, full_output=False,
                   state0=None, state_output=False, stats=None):
         return dew_point(self.params, self.kij, self._tensor(temperature),
                          self._tensor(vapor_molefracs), self._tensor(pressure),
-                         self.branches, full_output, state0, state_output, stats)
+                         full_output, state0, state_output, stats)

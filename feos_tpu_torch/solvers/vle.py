@@ -752,7 +752,7 @@ def _mix_newton(phi_q, phi_exact, z, u0, limits: MixLimits):
         stiff = torch.maximum(J[:, n, n].abs(), J[:, n, :n].abs().sum(-1))
         out = torch.cat([mu[:, 0] - mu[:, 1], (pt[:, 0] - pt[:, 1])[:, None], pt, stiff[:, None]], 1)
         r = out[:, : n + 1]
-        step = _solve3(J, r) if n == 2 else torch.linalg.solve(J, r)
+        step = _solve3(J, r)
         p_allow = (_NEWTON_RES_RTOL * e[:, :n].sum(-1)
                    + _MIX_RES_P_ABS * e[:, n])
         res_mu = r[:, :n].abs().amax(-1)

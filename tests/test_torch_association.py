@@ -182,12 +182,6 @@ def test_common_helpers_match_jax():
         return np.asarray(jax.vmap(fn)(*(jnp.asarray(x) for x in a)))
 
     for i, j in ((0, 0), (0, 1), (1, 1)):
-        want = jax_item(lambda ti, s, k, e, di, z2, z3, ex: jcommon.association_strength(
-            i, j, ti, s, k, e, di, z2, z3, epsilon_k_aibj=ex),
-            t, sigma, kappa, eps_ab, d, zeta2, zeta3_m1, eps_aibj)
-        got = common.association_strength(i, j, _t(t), _t(sigma), _t(kappa), _t(eps_ab),
-                                          _t(d), _t(zeta2), _t(zeta3_m1), _t(eps_aibj))
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=0)
         want_t = jax_item(lambda ti, s, k, e, ex: jcommon.assoc_strength_tfactor(
             i, j, ti, s, k, e, epsilon_k_aibj=ex), t, sigma, kappa, eps_ab, eps_aibj)
         got_t = common.assoc_strength_tfactor(i, j, _t(t), _t(sigma), _t(kappa),
@@ -198,20 +192,17 @@ def test_common_helpers_match_jax():
         got_f = common.assoc_strength_from_tfactor(_t(want_t), _t(dd), _t(zeta2),
                                                    _t(zeta3_m1))
         np.testing.assert_allclose(got_f.numpy(), want_f, rtol=1e-14, atol=0)
+        # the two factors together are JAX's whole association strength
+        want = jax_item(lambda ti, s, k, e, di, z2, z3, ex: jcommon.association_strength(
+            i, j, ti, s, k, e, di, z2, z3, epsilon_k_aibj=ex),
+            t, sigma, kappa, eps_ab, d, zeta2, zeta3_m1, eps_aibj)
+        got = common.assoc_strength_from_tfactor(got_t, _t(dd), _t(zeta2), _t(zeta3_m1))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=0)
 
     x = rng.uniform(0.01, 1.0, n)
     np.testing.assert_allclose(common.site_fraction_free_energy(_t(x)).numpy(),
                                np.asarray(jcommon.site_fraction_free_energy(jnp.asarray(x))),
                                rtol=1e-14)
-
-    etas = zeta3[:, None] ** np.arange(7)
-    m1, m2, e = rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n), rng.uniform(0.3, 2.0, n)
-    np.testing.assert_allclose(
-        common.pair_integral(_t(m1), _t(m2), _t(etas), _t(e)).numpy(),
-        jax_item(jcommon.pair_integral, m1, m2, etas, e), rtol=1e-13)
-    np.testing.assert_allclose(
-        common.triplet_integral(_t(m1), _t(m2), _t(etas)).numpy(),
-        jax_item(jcommon.triplet_integral, m1, m2, etas), rtol=1e-13)
 
 
 def test_dipole_matches_jax():

@@ -4,7 +4,13 @@ The golden file holds the reference's phi and derivative set in 14 regimes;
 a seeded batch of binary states in every regime (none, dipolar, self,
 cross with and without an eps_AiBj override, induced) goes through the
 port and through JAX's ``derivatives`` and ``precompute_mix`` in one jitted
-function of one shape.  The last test holds the port free of JAX imports.
+function of one shape.  The Jacobians of the derivative set in the
+parameters and kij are held to JAX's ``jacfwd`` by regime: the rows without
+association here, the self- and induced-associating rows in
+``test_torch_mix_eos_self.py`` and ``test_torch_mix_eos_induced.py``, and the
+cross-associating rows in ``test_torch_mix_jax_grad.py`` (JAX compiles each
+branch set for 15-40 s on a CPU, too long for one file).  The last test
+holds the port free of JAX imports.
 """
 
 import json
@@ -12,12 +18,14 @@ import re
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
 from feos_tpu.models import pcsaft_mix as jmix
+from feos_tpu.ops.derivatives import pressure_set as jpressure_set
 from feos_tpu_torch.models import pcsaft_mix as mix
 
 REPO = Path(__file__).resolve().parent.parent
@@ -74,6 +82,68 @@ def _mix_states(seed=7):
     return params, kij, temperature, z * (eta / eta_m)[:, None]
 
 
+# the six scalars of a state's derivative set, in the order of _flat
+OUTPUTS = ("A", "p", "mu0", "mu1", "v0", "v1")
+
+
+def _flat(a, p, mu, v):
+    """``(B, 6)`` = [A, p~, mu_0, mu_1, v_0, v_1] per row."""
+    return torch.cat([a[:, None], p[:, None], mu, v], 1)
+
+
+def regime_rows(*names):
+    """Mask of the rows of :func:`_mix_states` in the named regimes."""
+    return np.repeat(np.isin(REGIMES, names), N_PER_REGIME * len(ETAS))
+
+
+def jax_derivative_set(branches):
+    """Per state, JAX's ``[A, p~, mu_0, mu_1, v_0, v_1]`` as a function of
+    the ``(2, 8)`` parameters, ``(2,)`` kij, T and the ``(2,)`` density."""
+    def item(p, k, t, r):
+        pre = jmix.precompute_mix(jmix.MixParams.from_array(p), k[0], k[1], t)
+        a, pt, mu, v = jpressure_set(lambda x: jmix.phi_mix_pre(pre, x, branches=branches), r)
+        return jnp.concatenate([a[None], pt[None], mu, v])
+    return item
+
+
+def regime_jacobians(regimes, branches, keep=None):
+    """The port's and JAX's Jacobians (:func:`port_jacobians`) on the states
+    of the named regimes (and of ``keep``, a mask over them), JAX's with
+    one jitted ``jacfwd`` under the phi branch set ``branches``."""
+    args = tuple(x[regime_rows(*regimes)] for x in _mix_states())
+    if keep is not None:
+        args = tuple(x[keep(*args)] for x in args)
+    item = jax_derivative_set(frozenset(branches))
+    want = jax.jit(jax.vmap(jax.jacfwd(item, argnums=(0, 1))))(*args)
+    return port_jacobians(*args), want
+
+
+def port_jacobians(params, kij, temperature, rho):
+    """The port's Jacobians of the six outputs in the parameters ``(B, 6, 2,
+    8)`` and kij ``(B, 6, 2)``, by reverse mode over each output's row sum
+    (rows are independent)."""
+    p, k = _t(params).requires_grad_(), _t(kij).requires_grad_()
+    out = _flat(*mix.derivatives(p, k, _t(temperature), _t(rho)))
+    gp, gk = zip(*(torch.autograd.grad(out[:, j].sum(), (p, k), retain_graph=True)
+                   for j in range(len(OUTPUTS))))
+    return torch.stack(gp, 1).numpy(), torch.stack(gk, 1).numpy()
+
+
+def assert_rows_close(got, want):
+    """rtol 1e-10, with a floor of 1e-12 of each row's largest entry for
+    entries that cancel to near zero."""
+    got, want = got.reshape(len(got), -1), np.asarray(want).reshape(len(want), -1)
+    scale = np.abs(want).max(1, keepdims=True)
+    worst = np.max(np.abs(got - want) / (1e-10 * np.abs(want) + 1e-12 * scale))
+    assert worst <= 1.0, worst
+
+
+def assert_jacobians_match(got, want, j):
+    """Output ``j``'s Jacobians in the parameters and in kij, row by row."""
+    for g, w in zip(got, want):
+        assert_rows_close(g[:, j], np.asarray(w)[:, j])
+
+
 @pytest.fixture(scope="module")
 def states():
     """(inputs, port (A, p, mu, v), JAX (A, p, mu, v), JAX MixPre leaves)."""
@@ -102,7 +172,7 @@ def test_every_regime_is_present(states):
     assert pre.self_m.any() and pre.cross_m.any() and pre.induced_m.any()
     assert pre.dipolar.any()
     assert (~(pre.self_m | pre.cross_m | pre.induced_m | pre.dipolar)).any()
-    assert mix.static_branches(_t(params)) == jmix.static_branches(params) == mix.ALL_BRANCHES
+    assert pre.branches == jmix.static_branches(params) == frozenset(mix.BRANCHES)
 
 
 @pytest.mark.parametrize("j", range(4), ids=["A", "p", "mu", "v"])
@@ -116,6 +186,8 @@ def test_precompute_matches_jax(states):
     pre = mix.precompute_mix(mix.MixParams.from_numpy(params, "cpu"), _t(kij[:, 0]),
                              _t(kij[:, 1]), _t(temperature))
     for name in mix.MixPre._fields:
+        if name == "branches":  # JAX's MixPre leaves it to static_branches
+            continue
         got, want = getattr(pre, name), getattr(ref, name)
         if name == "dip":
             for f in got._fields:
@@ -216,6 +288,18 @@ def test_parameter_gradients_are_finite_in_every_regime(states):
     _, pt, mu, v = mix.derivatives(p, k, _t(temperature), _t(rho))
     gp, gk = torch.autograd.grad(pt.sum() + mu.sum() + v.sum(), (p, k))
     assert torch.isfinite(gp).all() and torch.isfinite(gk).all()
+
+
+@pytest.fixture(scope="module")
+def jacobians():
+    return regime_jacobians(("none", "dipolar"), {"dipole"})
+
+
+@pytest.mark.parametrize("j", range(len(OUTPUTS)), ids=OUTPUTS)
+def test_parameter_gradients_match_jax(jacobians, j):
+    """d(A, p~, mu, v)/d(parameters, kij) against JAX's jacfwd on the 36
+    states without association, with and without dipoles."""
+    assert_jacobians_match(*jacobians, j)
 
 
 def test_port_imports_no_jax():

@@ -6,8 +6,8 @@ and eps_AiBj) at four temperatures, a seeded batch of binary systems in
 every regime and the non-associating pair of ``tests/test_compat.py`` go
 through ``bubble_point``/``dew_point`` and through the independent C++
 oracle ``cpu_backend.mix_vle_densities``.  Gradients in all 8 parameters
-of component 0, kij and eps_AiBj are held to central differences at the
-bars of ``tests/test_pcsaft_mix.py``.
+of component 0, kij and eps_AiBj are held to central differences, the
+bubble pressure's at the bars of ``tests/test_pcsaft_mix.py``.
 """
 
 import time
@@ -313,6 +313,47 @@ def test_bubble_point_all_gradients_fd():
     assert abs(g_kij[0] - fd_kij) < 1.0, (g_kij[0], fd_kij)
     fd_eps = (p_all[18] - p_all[19]) / (2 * h_eps)
     assert abs(g_kij[1] - fd_eps) < abs(fd_eps) * 1e-3 + 1e-3, (g_kij[1], fd_eps)
+
+
+def test_dew_point_all_gradients_fd():
+    """d p_dew / d(8 parameters of component 0, kij, eps_AiBj) of config 3
+    at 150 K (0.44 Pa) against central differences.  The dew pressure is
+    so small that the bubble test's steps (3e-7 relative) move it by less
+    than the solve's 1e-9 tolerance, so the steps here are 1e-4 relative:
+    the differences' truncation error is then near 1e-8 and their noise
+    from the solve near 1e-5."""
+    base = np.array(CONFIG3)
+    kij0, eps0 = -0.15, 1000.0
+    params = _t(base[None]).requires_grad_()
+    kij = _t([[kij0, eps0]]).requires_grad_()
+    p, nans = ft.dew_point(params, kij, _t([150.0]), _t([0.5]), _t([1e5]))
+    assert not nans.any()
+    g_par, g_kij = torch.autograd.grad(p.sum(), (params, kij))
+    g_par, g_kij = g_par[0, 0].numpy(), g_kij[0].numpy()
+
+    hs = np.maximum(np.abs(base[0]), 1.0) * 1e-4
+    batch, kij_rows = [], []
+    for i in range(8):
+        for sgn in (1.0, -1.0):
+            p_i = base.copy()
+            p_i[0, i] += sgn * hs[i]
+            batch.append(p_i)
+            kij_rows.append([kij0, eps0])
+    h_k = (1e-4, 1e-1)
+    for j in range(2):
+        for sgn in (1.0, -1.0):
+            batch.append(base.copy())
+            row = [kij0, eps0]
+            row[j] += sgn * h_k[j]
+            kij_rows.append(row)
+    n = len(batch)
+    with torch.no_grad():
+        p_all, nans = ft.dew_point(_t(batch), _t(kij_rows), _t(np.full(n, 150.0)),
+                                   _t(np.full(n, 0.5)), _t(np.full(n, 1e5)))
+    assert not nans.any()
+    fd = (p_all.numpy()[0::2] - p_all.numpy()[1::2]) / (2 * np.concatenate([hs, h_k]))
+    np.testing.assert_allclose(g_par, fd[:8], rtol=1e-4, atol=1e-4 * np.abs(fd[:8]).max())
+    np.testing.assert_allclose(g_kij, fd[8:], rtol=1e-3, atol=0)
 
 
 def test_dew_point_kij_gradient_fd():
