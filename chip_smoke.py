@@ -17,7 +17,14 @@ the 14 golden regimes, and bubble and dew pressures of config 3 of
 ``benchmarks/run_all.py`` (a cross-associating pair with kij and eps_AiBj)
 at 4,096 and 100,000 rows and of a non-associating pair at 4,096, each with
 the gradient of sum log p in the parameters and kij, a warm-started rerun,
-and its first 512 rows rerun on the CPU.  Every phase raises on failure.
+and its first 512 rows rerun on the CPU.  Phase 13 drives heterosegmented
+gc-PC-SAFT, which launches no kernel either: the derivative set of the 11
+golden topologies (also tiled to 100,000 rows), bubble and dew pressures of
+config 4 of ``benchmarks/run_all.py`` (butane/propane with k_ab and phi)
+at 4,096 and 100,000 rows and of the golden topologies (every association
+regime) at 4,096, each with the gradient of sum log p in the segment
+parameters, k_ab and phi, a warm start and 512 rows on the CPU, and three
+``fit_gc`` steps.  Every phase raises on failure.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -36,15 +43,16 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from feos_tpu_torch import (
-    PureParams, ResidualProperties, boiling_temperature, bubble_point, critical_point,
-    dew_point, equilibrium_liquid_density, fit_pure, liquid_density, make_batch,
-    mix_derivatives, precompute_pure, pure_derivatives, pure_properties, pure_vle,
+    GcPcSaftMix, PureParams, ResidualProperties, boiling_temperature, bubble_point,
+    critical_point, dew_point, equilibrium_liquid_density, fit_gc, fit_pure, liquid_density,
+    make_batch, mix_derivatives, precompute_pure, pure_derivatives, pure_properties, pure_vle,
     vapor_pressure,
 )
 from feos_tpu_torch.kernels import build
@@ -112,6 +120,33 @@ NONASSOC = [[1, 3.5, 150, 0, 0, 0, 0, 0], [1, 3.5, 200, 0, 0, 0, 0, 0]]
 NONASSOC_KIJ = [-0.15, 0.0]
 NONASSOC_ANCHORS = {"bubble": 419901.14, "dew": 221902.57}
 MIX_GOLDEN_ATOL = {"a": 1e-14, "p": 1e-14, "mu": 1e-14, "v": 1e-11}
+# phase 13: gc-PC-SAFT with the sauer2014 segments.  Config 4 of
+# benchmarks/run_all.py, and the C++ oracle's pressures at T = linspace(140,
+# 160, 4), x1 = 0.5 (config 4) and of the 11 golden topologies at 300 K, x1 =
+# 0.4 (cpu_backend.gc_vle_densities, 12 significant digits); the golden
+# file's bars (tests/test_gc_pcsaft.py:57-73)
+GC_GOLDEN = ROOT / "tests" / "golden" / "gc_helmholtz.json"
+GC_SEGMENTS = ROOT / "tests" / "sauer2014_hetero.json"
+GC_SIZES = (4_096, 100_000)
+GC_ROWS = 4_096
+GC_FIT_STEPS = 3
+CONFIG4_SEGMENTS = [["CH3", "CH2", "CH2", "CH3"], ["CH3", "CH2", "CH3"]]
+CONFIG4_BONDS = [[[0, 1], [1, 2], [2, 3]], [[0, 1], [1, 2]]]
+CONFIG4_KAB = [("CH3", "CH2", -0.15)]
+CONFIG4_PHI = [1.1, 0.98]
+CONFIG4_ANCHORS = {
+    "bubble": [37.9446592193, 88.9941522194, 192.029446905, 385.46094256],
+    "dew": [0.400908291138, 1.36104131235, 4.09159097221, 11.0688250189],
+}
+GC_ASSOC_ANCHORS = {
+    "bubble": [612586.682372, 174094.000449, 135422.792522, 75481.8364177, 12354.1815792,
+               174843.210692, 95211.409215, 29648.9627044, 1744.54034816, 46252.6669947,
+               36330.2301942],
+    "dew": [224882.93475, 174054.064531, 15566.8224488, 22689.6814076, 10876.3836109,
+            2822.10534028, 59594.4104233, 2785.10536401, 40.5648851765, 40.6257999271,
+            632.126428475],
+}
+GC_GOLDEN_ATOL = {"a": 1e-14, "p": 1e-14, "mu": 1e-13, "v": 1e-11}
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -662,47 +697,69 @@ def mixture_derivatives(dev):
 
 def mixture_run(fn, params, kij, temperature, x1, p0, state0=None, stats=None):
     """One bubble or dew call with the gradient of sum log p over the
-    converged rows in the parameters and kij."""
+    converged rows in the parameters and kij: ``(nans, p, state, [d/dparams,
+    d/dkij])``."""
     p = params.detach().requires_grad_()
     k = kij.detach().requires_grad_()
     pr, nans, state = fn(p, k, temperature, x1, p0, state0=state0, state_output=True,
                          stats=stats)
     log_sum(nans, pr).backward()
-    return nans, pr.detach(), state, p.grad, k.grad
+    return nans, pr.detach(), state, [p.grad, k.grad]
 
 
-def mixture_case(label, fn, system, kij, temperature, dev, anchor=None):
-    """Phase 12, one direction at one size: converged rows, the median of
-    MIX_REPS synchronised calls after a warm-up, loop iterations, a warm
-    start from the first call's state, and the first N_CPU_MIX rows on the
-    CPU (equal masks, p at 1e-10, gradients at 1e-9)."""
-    rows = len(temperature)
-    args = (f64(np.tile(system, (rows, 1, 1)), dev), f64(np.tile(kij, (rows, 1)), dev),
-            f64(temperature, dev), f64(np.full(rows, 0.5), dev), f64(np.full(rows, 1e5), dev))
-    stats = {}
-    (nans, p, state, g_par, g_kij), sec, launches, _ = on_card(
-        lambda: mixture_run(fn, *args, stats=stats))
+def timed_solves(phase, label, run, rows):
+    """A bubble or dew path's cold call with its loop iterations, the median
+    of MIX_REPS synchronised calls, and a warm start from the cold call's
+    state, each with the phi_d2 launches it made; ``run(state0=None,
+    stats=None)`` returns ``(nans, p, state, gradients)``.  Checks that no
+    call launched phi_d2, that every row converged with finite gradients,
+    and that the warm start is within 1e-9 of the cold values.  Returns the
+    cold call's ``(nans, p, gradients)`` and the path's record."""
+    stats, warm_stats = {}, {}
+    (nans, p, state, grads), sec, launches, _ = on_card(lambda: run(stats=stats))
     n_ok = int((~nans).sum())
     times = []
     for _ in range(MIX_REPS):
-        _, t, _, _ = on_card(lambda: mixture_run(fn, *args))
+        _, t, n, _ = on_card(run)
         times.append(t)
+        launches += n
     step = statistics.median(times)
-    warm_stats = {}
-    (w_nans, w_p, _, _, _), w_sec, _, _ = on_card(
-        lambda: mixture_run(fn, *args, state0=state, stats=warm_stats))
+    (w_nans, w_p, _, _), w_sec, n, _ = on_card(lambda: run(state0=state, stats=warm_stats))
+    launches += n
     ok = ~nans & ~w_nans
     warm_rel = float((w_p / p - 1.0).abs()[ok].max())
-    print(f"phase 12 {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
+    print(f"phase {phase} {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
           f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
           f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, phi_d2 "
           f"launches {launches}; warm start {w_sec * 1e3:.1f} ms, loops {warm_stats}, "
           f"converged {int((~w_nans).sum())}, max |p_warm/p - 1| {warm_rel:.3e} (bound 1e-9)")
-    check(launches == 0, f"{label}: the mixture path launched phi_d2")
+    check(launches == 0, f"{label}: the path launched phi_d2")
     check(n_ok == rows, f"{label}: only {n_ok} of {rows} rows converged")
-    check(bool(torch.isfinite(g_par).all() & torch.isfinite(g_kij).all()),
-          f"{label}: non-finite gradients")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
     check(bool(w_nans.eq(nans).all()) and warm_rel < 1e-9, f"{label}: warm start")
+    return (nans, p, grads), {
+        "launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+        "converged": n_ok, "rows": rows, "loops": stats, "warm_ms": w_sec * 1e3,
+        "warm_loops": warm_stats}
+
+
+def agree_gradients(label, names, card, on_cpu):
+    """Gradients of the card against the CPU's, at 1e-9 with a floor of
+    1e-12 of the largest."""
+    for what, g, c in zip(names, card, on_cpu):
+        g, c = g.cpu().flatten(), c.flatten()
+        no = torch.zeros(g.shape, dtype=torch.bool)
+        agree(f"{label} d/d{what}", no, g, no, c, 1e-9, 1e-12 * float(c.abs().max()))
+
+
+def mixture_case(label, fn, system, kij, temperature, dev, anchor=None):
+    """Phase 12, one direction at one size (:func:`timed_solves`), and the
+    first N_CPU_MIX rows on the CPU (equal masks, p at 1e-10, gradients at
+    1e-9)."""
+    rows = len(temperature)
+    args = (f64(np.tile(system, (rows, 1, 1)), dev), f64(np.tile(kij, (rows, 1)), dev),
+            f64(temperature, dev), f64(np.full(rows, 0.5), dev), f64(np.full(rows, 1e5), dev))
+    (nans, p, grads), record = timed_solves(12, label, partial(mixture_run, fn, *args), rows)
     if anchor is not None:
         err = float((p - anchor).abs().max())
         # the anchor's last printed decimal, and the solve's 1e-9
@@ -710,19 +767,23 @@ def mixture_case(label, fn, system, kij, temperature, dev, anchor=None):
               f"(5e-3 + 1e-9 of it)")
         check(err < 5e-3 + 1e-9 * anchor, f"{label} off its anchor")
 
-    cpu_args = [x[:N_CPU_MIX].cpu() for x in args]
-    c_nans, c_p, _, c_par, c_kij = mixture_run(fn, *cpu_args)
-    card_nans = nans[:N_CPU_MIX].cpu()
-    agree(f"{label} p", card_nans, p[:N_CPU_MIX].cpu(), c_nans, c_p, 1e-10)
-    no = torch.zeros(N_CPU_MIX * 16, dtype=torch.bool)
-    agree(f"{label} d/dparams", no, g_par[:N_CPU_MIX].cpu().flatten(), no, c_par.flatten(),
-          1e-9, 1e-12 * float(c_par.abs().max()))
-    no = torch.zeros(N_CPU_MIX * 2, dtype=torch.bool)
-    agree(f"{label} d/dkij", no, g_kij[:N_CPU_MIX].cpu().flatten(), no, c_kij.flatten(),
-          1e-9, 1e-12 * float(c_kij.abs().max()))
-    return {"launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
-            "converged": n_ok, "rows": rows, "loops": stats, "warm_ms": w_sec * 1e3,
-            "warm_loops": warm_stats}
+    c_nans, c_p, _, c_grads = mixture_run(fn, *(x[:N_CPU_MIX].cpu() for x in args))
+    agree(f"{label} p", nans[:N_CPU_MIX].cpu(), p[:N_CPU_MIX].cpu(), c_nans, c_p, 1e-10)
+    agree_gradients(label, ("params", "kij"), (g[:N_CPU_MIX] for g in grads), c_grads)
+    return record
+
+
+def profile(phase, label, fn, record):
+    """Where the time of one call of ``fn`` goes: the card's busy time
+    (:func:`device_profile`) against the path's unprofiled median, added to
+    its ``record``."""
+    busy, kernels, host_ops = device_profile(fn)
+    step = record["ms"]
+    idle = f"idle share {1.0 - busy / step:.3f}" if kernels else "busy time not measured"
+    print(f"phase {phase} profile of {label} (solve + backward): card busy {busy:.1f} ms in "
+          f"{kernels} kernels, {host_ops} aten ops on the host; {idle} of the unprofiled "
+          f"median {step:.1f} ms")
+    record.update(busy_ms=busy if kernels else None, kernels=kernels, host_ops=host_ops)
 
 
 def device_profile(fn):
@@ -763,25 +824,185 @@ def mixtures(dev):
         for name, fn in (("bubble", bubble_point), ("dew", dew_point)):
             label = f"config 3 {name} B={rows}"
             paths[label] = mixture_case(label, fn, CONFIG3, CONFIG3_KIJ, temperature, dev)
-    # where the time of the largest call goes: the card's busy time against
-    # the unprofiled median of the same call
+    # where the time of the largest call goes
     rows = MIX_SIZES[-1]
     args = (f64(np.tile(CONFIG3, (rows, 1, 1)), dev), f64(np.tile(CONFIG3_KIJ, (rows, 1)), dev),
             f64(np.linspace(140.0, 160.0, rows), dev), f64(np.full(rows, 0.5), dev),
             f64(np.full(rows, 1e5), dev))
-    busy, kernels, host_ops = device_profile(lambda: mixture_run(bubble_point, *args))
-    step = paths[f"config 3 bubble B={rows}"]["ms"]
-    idle = f"idle share {1.0 - busy / step:.3f}" if kernels else "busy time not measured"
-    print(f"phase 12 profile of config 3 bubble B={rows} (solve + backward): card busy "
-          f"{busy:.1f} ms in {kernels} kernels, {host_ops} aten ops on the host; {idle} "
-          f"of the unprofiled median {step:.1f} ms")
-    paths[f"config 3 bubble B={rows}"].update(busy_ms=busy if kernels else None,
-                                              kernels=kernels, host_ops=host_ops)
+    label = f"config 3 bubble B={rows}"
+    profile(12, label, lambda: mixture_run(bubble_point, *args), paths[label])
     for name, fn in (("bubble", bubble_point), ("dew", dew_point)):
         label = f"non-associating {name} B={MIX_SIZES[0]}"
         paths[label] = mixture_case(label, fn, NONASSOC, NONASSOC_KIJ,
                                     np.full(MIX_SIZES[0], 150.0), dev, NONASSOC_ANCHORS[name])
     return paths
+
+
+def sauer2014():
+    """The segment identifiers and the 8-tuple of segment columns."""
+    segs = json.loads(GC_SEGMENTS.read_text())
+    cols = ("m", "sigma", "epsilon_k", "mu", "kappa_ab", "epsilon_k_ab", "na", "nb")
+    return ([r["identifier"] for r in segs],
+            tuple(np.array([r["model_record"].get(k, 0.0) for r in segs]) for k in cols))
+
+
+class GcSystem:
+    """A gc system on ``rows`` rows: the golden topologies cycled, or config
+    4 on every row; ``model(dev, n)`` is the ``GcPcSaftMix`` of its first n
+    rows on ``dev``."""
+
+    def __init__(self, rows, golden=False):
+        self.ident, self.parameter = sauer2014()
+        if golden:
+            gold = json.loads(GC_GOLDEN.read_text())
+            idx = np.arange(rows) % len(gold["labels"])
+            self.segments = [gold["segment_lists"][i] for i in idx]
+            self.bonds = [gold["bond_lists"][i] for i in idx]
+            self.records = [tuple(k) for k in gold["kab_list"]]
+            self.phi = np.asarray(gold["phi"])[idx]
+        else:
+            self.segments, self.bonds = [CONFIG4_SEGMENTS] * rows, [CONFIG4_BONDS] * rows
+            self.records, self.phi = CONFIG4_KAB, np.tile(CONFIG4_PHI, (rows, 1))
+
+    def model(self, dev, n=None):
+        return GcPcSaftMix(self.ident, self.parameter, self.segments[:n], self.bonds[:n],
+                           self.records, self.phi[:n], device=dev)
+
+
+def gc_derivative_set(dev):
+    """Phase 13(a): the gc derivative set on the card for the 11 golden
+    topologies against the golden values, then tiled to B rows, timed, and
+    its first N_CPU rows against the CPU."""
+    gold = json.loads(GC_GOLDEN.read_text())
+    n = len(gold["labels"])
+
+    def state(rows, d):
+        return (f64(np.full(rows, gold["temperature"]), d),
+                f64(np.tile(gold["density"], (rows, 1)), d))
+
+    with torch.no_grad():
+        out = GcSystem(n, golden=True).model(dev).derivatives(*state(n, dev))
+    for key, got in zip(("a", "p", "mu", "v"), out):
+        err = float(np.max(np.abs(got.cpu().numpy() - np.asarray(gold[key]))))
+        print(f"phase 13 gc derivatives vs golden {key}: max abs err {err:.3e} "
+              f"(atol {GC_GOLDEN_ATOL[key]:g})")
+        check(err <= GC_GOLDEN_ATOL[key], f"gc derivatives {key} off the golden values")
+
+    system = GcSystem(B, golden=True)
+    model, args = system.model(dev), state(B, dev)
+    with torch.no_grad():
+        model.derivatives(*args)  # warm-up
+        out, sec, launches, _ = on_card(lambda: model.derivatives(*args))
+        cpu_out = system.model("cpu", N_CPU).derivatives(*state(N_CPU, "cpu"))
+    print(f"phase 13 gc derivatives at B={B} (the 11 topologies tiled): {sec * 1e3:.1f} ms, "
+          f"phi_d2 launches {launches}")
+    check(launches == 0, "the gc derivative path launched phi_d2")
+    for key, got, want in zip(("A", "p~", "mu", "v"), out, cpu_out):
+        got, want = got[:N_CPU].cpu().flatten(), want.flatten()
+        no = torch.zeros(got.shape, dtype=torch.bool)
+        agree(f"gc derivatives {key}", no, got, no, want, 1e-12)
+    return {"launches": launches, "by_k": {}, "ms": sec * 1e3}
+
+
+def gc_run(model, name, temperature, x1, p0, state0=None, stats=None):
+    """One gc bubble or dew call with the gradient of sum log p over the
+    converged rows in the segment parameters, k_ab and phi."""
+    model.zero_grad(set_to_none=True)
+    fn = model.bubble_point if name == "bubble" else model.dew_point
+    p, nans, state = fn(temperature, x1, p0, state0=state0, state_output=True, stats=stats)
+    log_sum(nans, p).backward()
+    return nans, p.detach(), state, [x.grad for x in (model.parameter, model.kab, model.phi)]
+
+
+def gc_case(label, name, system, temperature, x1, dev):
+    """Phase 13(b, c), one direction at one size (:func:`timed_solves`), and
+    the first N_CPU_MIX rows on the CPU: equal masks and p at 1e-10 against
+    this call, and the gradients (shared by the rows) of those rows alone on
+    the card and on the CPU at 1e-9."""
+    rows = len(temperature)
+    args = (f64(temperature, dev), f64(x1, dev), f64(np.full(rows, 1e5), dev))
+    (nans, p, _), record = timed_solves(13, label, partial(gc_run, system.model(dev), name,
+                                                           *args), rows)
+    n = N_CPU_MIX
+    card = gc_run(system.model(dev, n), name, *(x[:n] for x in args))
+    on_cpu = gc_run(system.model("cpu", n), name, *(x[:n].cpu() for x in args))
+    agree(f"{label} p", nans[:n].cpu(), p[:n].cpu(), on_cpu[0], on_cpu[1], 1e-10)
+    agree_gradients(label, ("segment parameters", "k_ab", "phi"), card[3], on_cpu[3])
+    return record, p
+
+
+def gc_anchors(label, name, system, temperature, x1, dev, anchors):
+    """The card's pressures on the anchors' rows against the C++ oracle's,
+    at rtol 1e-9 (the oracle tests' bar)."""
+    n = len(anchors)
+    with torch.no_grad():
+        fn = getattr(system.model(dev, n), f"{name}_point")
+        p, nans = fn(f64(temperature[:n], dev), f64(x1[:n], dev), f64(np.full(n, 1e5), dev))
+    rel = float((p.cpu() / f64(anchors, "cpu") - 1.0).abs().max())
+    print(f"phase 13 {label} vs the oracle's {n} anchors: max rel err {rel:.3e} (rtol 1e-9)")
+    check(not bool(nans.any()) and rel <= 1e-9, f"{label} off the oracle's anchors")
+
+
+def gc_mixtures(dev):
+    """Phase 13(b-d): config 4 and the golden topologies, bubble and dew,
+    with gradients; the profile of the largest bubble call; fit_gc."""
+    paths, p_config4 = {}, None
+    for name in ("bubble", "dew"):
+        gc_anchors(f"config 4 {name}", name, GcSystem(4), np.linspace(140.0, 160.0, 4),
+                   np.full(4, 0.5), dev, CONFIG4_ANCHORS[name])
+    for rows in GC_SIZES:
+        temperature, x1 = np.linspace(140.0, 160.0, rows), np.full(rows, 0.5)
+        for name in ("bubble", "dew"):
+            label = f"gc config 4 {name} B={rows}"
+            paths[label], p = gc_case(label, name, GcSystem(rows), temperature, x1, dev)
+            if rows == GC_ROWS and name == "bubble":
+                p_config4 = p
+    rows = GC_SIZES[-1]
+    model = GcSystem(rows).model(dev)
+    args = (f64(np.linspace(140.0, 160.0, rows), dev), f64(np.full(rows, 0.5), dev),
+            f64(np.full(rows, 1e5), dev))
+    label = f"gc config 4 bubble B={rows}"
+    profile(13, label, lambda: gc_run(model, "bubble", *args), paths[label])
+
+    # every association regime: the golden topologies at 300 K, x1 = 0.4
+    golden = GcSystem(GC_ROWS, golden=True)
+    temperature, x1 = np.full(GC_ROWS, 300.0), np.full(GC_ROWS, 0.4)
+    for name in ("bubble", "dew"):
+        label = f"gc golden topologies {name} B={GC_ROWS}"
+        gc_anchors(label, name, golden, temperature, x1, dev, GC_ASSOC_ANCHORS[name])
+        paths[label], _ = gc_case(label, name, golden, temperature, x1, dev)
+    paths["fit_gc"] = gc_fit(dev, p_config4)
+    return paths
+
+
+def gc_fit(dev, p_data):
+    """Phase 13(d): GC_FIT_STEPS steps of fit_gc on the GC_ROWS config 4
+    rows, from k_ab = 0, against the bubble pressures at k_ab = -0.15; the
+    fit of the first N_CPU_MIX rows on the card against the CPU."""
+    ident, parameter = sauer2014()
+
+    def run(rows, d):
+        return fit_gc(ident, parameter, [CONFIG4_SEGMENTS], [CONFIG4_BONDS],
+                      [("CH3", "CH2", 0.0)], np.linspace(140.0, 160.0, GC_ROWS)[:rows],
+                      np.full(rows, 0.5), p_data[:rows].cpu().numpy(), phi=CONFIG4_PHI,
+                      steps=GC_FIT_STEPS, device=d)
+
+    card, on_cpu = run(N_CPU_MIX, dev), run(N_CPU_MIX, "cpu")
+    res, sec, launches, _ = on_card(lambda: run(GC_ROWS, dev))
+    losses = res.loss_history.cpu().numpy()
+    print(f"phase 13 fit_gc: B={GC_ROWS}, {GC_FIT_STEPS} steps (and the cold solve that "
+          f"seeds them) in {sec * 1e3:.1f} ms, {sec / GC_FIT_STEPS * 1e3:.1f} ms a step, "
+          f"losses {losses.tolist()}, k_ab {res.parameters.tolist()}, phi_d2 launches "
+          f"{launches}")
+    check(launches == 0, "fit_gc launched phi_d2")
+    check(bool(np.isfinite(losses).all()) and bool(np.all(np.diff(losses) < 0.0)),
+          "fit_gc loss does not fall")
+    for what, a, b in (("loss history", card.loss_history, on_cpu.loss_history),
+                       ("k_ab", card.parameters, on_cpu.parameters)):
+        no = torch.zeros(b.shape, dtype=torch.bool)
+        agree(f"fit_gc {what}", no, a.cpu(), no, b, 1e-10)
+    return {"launches": launches, "by_k": {}, "ms_per_step": sec / GC_FIT_STEPS * 1e3,
+            "steps": GC_FIT_STEPS, "losses": losses.tolist()}
 
 
 def main():
@@ -826,6 +1047,10 @@ def main():
     # phases 11-12: binary mixtures (torch ops only: no phi_d2 launch)
     paths["mix_derivatives"] = mixture_derivatives(dev)
     paths.update(mixtures(dev))
+
+    # phase 13: gc-PC-SAFT (torch ops only: no phi_d2 launch)
+    paths["gc_derivatives"] = gc_derivative_set(dev)
+    paths.update(gc_mixtures(dev))
 
     shapes = kernel["shapes"]
     ref = shapes["(B, 2)"]  # the most launched shape, with (B, 1)

@@ -7,7 +7,9 @@ reverse-mode gradients with respect to all 8 parameters of every row, and
 the parameter fit built on them.  Binary mixtures: the Helmholtz energy
 with its association fixed points and derivative set (A, p~, mu, v), and
 batched bubble and dew pressures with gradients with respect to the
-parameters, kij and epsilon_k_AiBj.
+parameters, kij and epsilon_k_AiBj.  Heterosegmented (group-contribution)
+binaries: the same, with gradients in the segment parameters, k_ab and
+phi, and the k_ab fit.
 
 * :class:`PcSaftPure` -- ``nn.Module`` facade holding ``(B, 8)`` parameters;
 * :func:`vapor_pressure`, :func:`liquid_density`,
@@ -19,8 +21,16 @@ parameters, kij and epsilon_k_AiBj.
   parameters and ``(B, 2)`` kij; :func:`bubble_point`, :func:`dew_point`
   -- functional forms, ``(p, nans)`` as in the JAX package;
   :func:`mix_derivatives`, :func:`mix_helmholtz_energy_density`;
+* :class:`GcPcSaftMix` -- ``nn.Module`` facade holding the ``(S, 8)``
+  segment parameters, the k_ab record values and phi, over a
+  :class:`GcTopology` (molecules, host data); :func:`gc_bubble_point`,
+  :func:`gc_dew_point` -- functional forms on assembled :class:`GcParams`,
+  ``(p, nans)``; :func:`gc_derivatives`, :func:`gc_helmholtz_energy_density`,
+  :func:`precompute_gc`;
+* :func:`fit_gc` -- k_ab regression on gc bubble pressures, warm-started
+  from step to step;
 * :mod:`feos_tpu_torch.compat` -- the reference's numpy contract
-  (``PcSaft``);
+  (``PcSaft``, ``GcPcSaft``);
 * :func:`phi_d2` -- the hand-written CUDA kernel behind the solvers' phi
   evaluations (its plain PyTorch version on CPU tensors).
 
@@ -33,6 +43,16 @@ unless the caller asks for the CPU.  The package imports neither jax nor
 from . import units
 from .data import make_batch
 from .kernels.phi_d2 import phi_d2
+from .models.gc_pcsaft import (
+    GcParams,
+    GcPcSaftMix,
+    GcTopology,
+    gc_bubble_point,
+    gc_derivatives,
+    gc_dew_point,
+    gc_helmholtz_energy_density,
+    precompute_gc,
+)
 from .models.pcsaft_mix import (
     MixParams,
     PcSaftMix,
@@ -57,11 +77,14 @@ from .models.pcsaft_pure import (
     vapor_pressure,
 )
 from .properties import ResidualProperties, pure_properties
-from .regression import FitResult, fit_pure, masked_relative_sse, pure_loss
+from .regression import FitResult, fit_gc, fit_pure, masked_relative_sse, pure_loss
 from .solvers.vle import mix_vle, npt_density, pure_critical, pure_vle
 
 __all__ = [
     "FitResult",
+    "GcParams",
+    "GcPcSaftMix",
+    "GcTopology",
     "MixParams",
     "PcSaftMix",
     "PcSaftPure",
@@ -73,7 +96,12 @@ __all__ = [
     "critical_point",
     "dew_point",
     "equilibrium_liquid_density",
+    "fit_gc",
     "fit_pure",
+    "gc_bubble_point",
+    "gc_derivatives",
+    "gc_dew_point",
+    "gc_helmholtz_energy_density",
     "liquid_density",
     "make_batch",
     "masked_relative_sse",
@@ -84,6 +112,7 @@ __all__ = [
     "npt_density",
     "phi_d2",
     "phi_pure",
+    "precompute_gc",
     "precompute_mix",
     "precompute_pure",
     "pure_critical",

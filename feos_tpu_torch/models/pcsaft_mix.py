@@ -25,6 +25,7 @@ parameters.  Everything is ``torch.float64`` on the device of the inputs.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -263,7 +264,7 @@ def phi_mix_pre(pre: MixPre, density, assoc_q_form: bool = False):
     return phi
 
 
-def _q_f1(x):
+def q_f1(x):
     """Per-site Q-form free energy  f1(X) = ln X - X + 1."""
     return torch.log(x) - x + 1.0
 
@@ -281,7 +282,7 @@ def _phi_self_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
     xb = 2.0 / (sqrt + 1.0 + (rhoa - rhob) * delta)
     if q_form:
         xa, xb = xa.detach(), xb.detach()
-        return rhoa * _q_f1(xa) + rhob * _q_f1(xb) - rhoa * rhob * xa * xb * delta
+        return rhoa * q_f1(xa) + rhob * q_f1(xb) - rhoa * rhob * xa * xb * delta
     f = site_fraction_free_energy
     return rhoa * f(xa) + rhob * f(xb)
 
@@ -314,8 +315,8 @@ def _phi_cross_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
             + rhoa[..., 1] * rhob[..., 1] * xa1 * xb1 * d11
         )
         return (
-            rhoa[..., 0] * _q_f1(xa0) + rhoa[..., 1] * _q_f1(xa1)
-            + rhob[..., 0] * _q_f1(xb0) + rhob[..., 1] * _q_f1(xb1) - bil
+            rhoa[..., 0] * q_f1(xa0) + rhoa[..., 1] * q_f1(xa1)
+            + rhob[..., 0] * q_f1(xb0) + rhob[..., 1] * q_f1(xb1) - bil
         )
     xa0, xa1 = solve_cross_assoc(*args)
     xb0 = 1.0 / (1.0 + xa0 * rhoa[..., 0] * d00 + xa1 * rhoa[..., 1] * d01)
@@ -328,17 +329,23 @@ def _phi_cross_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
 def _phi_induced_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
     """One self-associating + one induced (nA = 0) component
     (reference feos_torch/pcsaft_mix.py:324-393)."""
-    mask = col(pre.induced_m)
+    return induced_assoc_term(pre.induced_m, pre.ind_t, pre.dd, pre.na, pre.nb,
+                              rho, zeta2, zeta3_m1, col, q_form)
+
+
+def induced_assoc_term(mask, tfac, dd, na, nb, rho, zeta2, zeta3_m1, col, q_form=False):
+    """The induced-association term from ``(B,)`` regime ``mask``, ``(B, n,
+    n)`` T-factors ``tfac`` and diameter factors ``dd``, and ``(B, n)``
+    site counts; shared by the mixture and the gc model."""
+    mask = col(mask)
 
     def delta_rho(i, j):
-        dd = assoc_strength_from_tfactor(
-            col(pre.ind_t[:, i, j]), col(pre.dd[:, i, j]), zeta2, zeta3_m1
-        )
-        return torch.where(mask, dd * rho[..., j], 0.0)
+        d = assoc_strength_from_tfactor(col(tfac[:, i, j]), col(dd[:, i, j]), zeta2, zeta3_m1)
+        return torch.where(mask, d * rho[..., j], 0.0)
 
     d00, d01 = delta_rho(0, 0), delta_rho(0, 1)
     d10, d11 = delta_rho(1, 0), delta_rho(1, 1)
-    na, nb = col(pre.na), col(pre.nb)
+    na, nb = col(na), col(nb)
     na0, na1, nb0, nb1 = na[..., 0], na[..., 1], nb[..., 0], nb[..., 1]
     args = (d00, d01, d10, d11, na0, na1, nb0, nb1)
     if q_form:
@@ -353,8 +360,8 @@ def _phi_induced_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
             na0 * rho[..., 0] * (nb0 * xb0 * d00 + nb1 * xb1 * d01)
             + na1 * rho[..., 1] * (nb0 * xb0 * d10 + nb1 * xb1 * d11)
         )
-        return (rho_a * _q_f1(xa) + rho[..., 0] * nb0 * _q_f1(xb0)
-                + rho[..., 1] * nb1 * _q_f1(xb1) - bil)
+        return (rho_a * q_f1(xa) + rho[..., 0] * nb0 * q_f1(xb0)
+                + rho[..., 1] * nb1 * q_f1(xb1) - bil)
     xa = solve_induced_assoc(*args)
     xb0 = 1.0 / (1.0 + xa * (na0 * d00 + na1 * d01))
     xb1 = 1.0 / (1.0 + xa * (na0 * d10 + na1 * d11))
@@ -415,14 +422,27 @@ def solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble,
     )
 
 
-def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubble,
-                        full_output=False, state0=None, state_output=False, stats=None):
-    """Shared bubble/dew implementation with stationary re-attachment.
+def binary_inputs(device, temperature, molefracs, pressure):
+    """``(T (B,), z (B, 2), p~ (B,))`` in f64 on ``device`` from temperatures,
+    compositions (x1 per row, the reference's binary convention, or ``(B,
+    2)``) and pressures in Pa."""
+    temperature = torch.as_tensor(temperature, dtype=F64, device=device)
+    molefracs = torch.as_tensor(molefracs, dtype=F64, device=device)
+    pressure = torch.as_tensor(pressure, dtype=F64, device=device)
+    if molefracs.dim() == 1:
+        molefracs = torch.stack([molefracs, 1.0 - molefracs], -1)
+    return temperature, molefracs, pressure / temperature * PA_PER_KT_TO_REDUCED
 
-    The detached solve (:func:`solve_incipient`) gives the coexisting
-    partial densities and the reduced pressure p~_eq (the vapor side's,
-    from the solver's carried state).  Failed rows are sanitised, and the
-    gradient re-attaches through the stationary identity (reference
+
+def reattach_incipient(solved, temperature, phi_fn=None, full_output=False,
+                       state_output=False):
+    """Bubble/dew outputs from a detached solve, with stationary
+    re-attachment.
+
+    ``solved`` is ``(rho_inc, rho_bulk, ok, p~_eq)`` from :func:`mix_vle`.
+    Failed rows are sanitised, and where ``phi_fn`` (the exact phi,
+    differentiable in the parameters) is given, the gradient re-attaches
+    through the stationary identity (reference
     feos_torch/pcsaft_mix.py:435-443 and :459-467)
 
         p~ = -(a_inc + p~_bulk v_bulk + g_bulk - 1) / (1/rho_inc - v_bulk)
@@ -432,29 +452,18 @@ def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubbl
     densities: ``p~_eq + (identity - identity.detach())`` carries the
     solver's value and the identity's derivatives.  The identity's partial
     molar volumes v_bulk are second order in phi and taken in f64.
-    """
-    dev = parameters.device
-    temperature = torch.as_tensor(temperature, dtype=F64, device=dev)
-    molefracs = torch.as_tensor(molefracs, dtype=F64, device=dev)
-    pressure = torch.as_tensor(pressure, dtype=F64, device=dev)
-    if molefracs.dim() == 1:
-        # the reference's binary convention: x1 per row
-        molefracs = torch.stack([molefracs, 1.0 - molefracs], -1)
 
-    p_red = pressure / temperature * PA_PER_KT_TO_REDUCED
-    rho_inc, rho_bulk, ok, pt_eq = solve_incipient(
-        parameters, kij, temperature, molefracs, p_red, bubble, state0, stats)
+    Returns ``(p [Pa], nans)``, then the incipient composition with
+    ``full_output`` and the converged log-state with ``state_output``.
+    """
+    rho_inc, rho_bulk, ok, pt_eq = solved
     # sanitise failed rows: NaN or zero densities would give NaN
     # derivatives, which the final torch.where cannot repair
     rho_inc = torch.where(ok[:, None], rho_inc, 1e-5)
     rho_bulk = torch.where(ok[:, None], rho_bulk, 1e-3)
     pt_eq = torch.where(ok, pt_eq, 1.0)
-
-    if torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in (parameters, kij, temperature)
-    ):
-        pre = _pre(parameters, kij, temperature)
-        ident = _identity(lambda r: phi_mix_pre(pre, r), rho_inc, rho_bulk)
+    if phi_fn is not None:
+        ident = _identity(phi_fn, rho_inc, rho_bulk)
         pt_eq = pt_eq + (ident - ident.detach())
     pressure_out = torch.where(ok, pt_eq * temperature * REDUCED_TO_PA_PER_KT, torch.nan)
     out = (pressure_out, ~ok)
@@ -467,6 +476,26 @@ def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubbl
         u_state = torch.cat([torch.log(rho_inc), torch.log(rho_bulk.sum(-1))[:, None]], 1)
         out = out + (torch.where(ok[:, None], u_state, torch.nan),)
     return out
+
+
+def needs_grad(*tensors):
+    """Whether autograd is on and one of ``tensors`` requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
+def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubble,
+                        full_output=False, state0=None, state_output=False, stats=None):
+    """Shared bubble/dew implementation: the detached solve
+    (:func:`solve_incipient`), then :func:`reattach_incipient`."""
+    temperature, molefracs, p_red = binary_inputs(parameters.device, temperature, molefracs,
+                                                  pressure)
+    solved = solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble, state0,
+                             stats)
+    phi_fn = None
+    if needs_grad(parameters, kij, temperature):
+        phi_fn = partial(phi_mix_pre, _pre(parameters, kij, temperature))
+    return reattach_incipient(solved, temperature, phi_fn, full_output, state_output)
 
 
 def _identity(phi_fn, r_inc, r_bulk):

@@ -1,4 +1,4 @@
-"""Association site-fraction solvers (cross and induced regimes).
+"""Association site-fraction solvers (cross, induced and gc cross regimes).
 
 Counterpart of ``feos_tpu/ops/association.py``.  Each solver is a
 ``torch.autograd.Function``, the counterpart of the JAX ``custom_jvp``:
@@ -171,3 +171,64 @@ def solve_induced_assoc(d00, d01, d10, d11, na0, na1, nb0, nb1):
     return SolveInducedAssoc.apply(
         *torch.broadcast_tensors(d00, d01, d10, d11, na0, na1, nb0, nb1)
     )
+
+
+# ---------------------------------------------------------------------------
+# gc cross association, nA = nB = 1 (two unknowns)
+# ---------------------------------------------------------------------------
+
+
+def _cross_sym_residual(xa0, xa1, d00, d01, d10, d11):
+    """gc cross-association residual, nA = nB = 1
+    (reference feos_torch/gc_pcsaft.py:360-377); dij = Delta_ij * rho_j."""
+    f0 = xa0 + xa0 * xa0 * d00 + xa0 * xa1 * d01 - 1.0
+    f1 = xa1 + xa1 * xa0 * d10 + xa1 * xa1 * d11 - 1.0
+    return f0, f1
+
+
+def _cross_sym_jac(xa0, xa1, d00, d01, d10, d11):
+    j00 = 1.0 + 2.0 * xa0 * d00 + xa1 * d01
+    j01 = xa0 * d01
+    j10 = xa1 * d10
+    j11 = 1.0 + xa0 * d10 + 2.0 * xa1 * d11
+    return j00, j01, j10, j11
+
+
+@torch.no_grad()
+def cross_assoc_sym_iterate(*args):
+    """The forward solve of :class:`SolveCrossAssocSym` on detached inputs:
+    ``_N_ITER`` damped Newton steps from X = 0.2."""
+    x0 = torch.full_like(args[0], 0.2)
+    xa0, xa1 = x0, x0
+    for _ in range(_N_ITER):
+        f0, f1 = _cross_sym_residual(xa0, xa1, *args)
+        dx0, dx1 = _solve22(*_cross_sym_jac(xa0, xa1, *args), f0, f1)
+        n0, n1 = xa0 - dx0, xa1 - dx1
+        xa0 = torch.where(n0 < 0.0, 0.2 * xa0, n0)
+        xa1 = torch.where(n1 < 0.0, 0.2 * xa1, n1)
+    return xa0, xa1
+
+
+class SolveCrossAssocSym(torch.autograd.Function):
+    """(XA0, XA1) of the gc cross-association fixed point, with implicit
+    derivatives of every order (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        xa0, xa1 = cross_assoc_sym_iterate(*(a.detach() for a in args))
+        ctx.save_for_backward(xa0, xa1, *args)
+        return xa0, xa1
+
+    @staticmethod
+    def backward(ctx, g0, g1):
+        xa0, xa1, *theta = ctx.saved_tensors
+        j00, j01, j10, j11 = _cross_sym_jac(xa0, xa1, *theta)
+        l0, l1 = _solve22(j00, j10, j01, j11, g0, g1)
+        _, vjp = torch.func.vjp(lambda *th: _cross_sym_residual(xa0, xa1, *th), *theta)
+        return vjp((-l0, -l1))
+
+
+def solve_cross_assoc_sym(d00, d01, d10, d11):
+    """Solve the gc cross-association fixed point (nA = nB = 1) for (XA0,
+    XA1); ``dij`` are Delta_ij * rho_j and broadcast against each other."""
+    return SolveCrossAssocSym.apply(*torch.broadcast_tensors(d00, d01, d10, d11))
