@@ -24,7 +24,15 @@ config 4 of ``benchmarks/run_all.py`` (butane/propane with k_ab and phi)
 at 4,096 and 100,000 rows and of the golden topologies (every association
 regime) at 4,096, each with the gradient of sum log p in the segment
 parameters, k_ab and phi, a warm start and 512 rows on the CPU, and three
-``fit_gc`` steps.  Every phase raises on failure.
+``fit_gc`` steps.  Phase 14 drives the binary workload built on bubble and
+dew points, torch ops but for the diagrams' pure seeds (``phi_d2``): bubble
+and dew temperatures of config 3 and of config 4 at 4,096 and 100,000 rows
+(the golden topologies at 512) at the port's own pressures, with gradients,
+the implicit-function identity and 512 rows on the CPU; three
+``fit_binary`` steps; p-x-y and T-x-y diagrams with the closure of their
+dew curves; and the residual properties of config 3's and config 4's
+100,000 coexisting phases, with isofugacity and 2,000 rows on the CPU.
+Every phase raises on failure.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -50,13 +58,16 @@ import numpy as np
 import torch
 
 from feos_tpu_torch import (
-    GcPcSaftMix, PureParams, ResidualProperties, boiling_temperature, bubble_point,
-    critical_point, dew_point, equilibrium_liquid_density, fit_gc, fit_pure, liquid_density,
-    make_batch, mix_derivatives, precompute_pure, pure_derivatives, pure_properties, pure_vle,
-    vapor_pressure,
+    GcPcSaftMix, PureParams, ResidualProperties, binary_pxy, binary_txy, boiling_temperature,
+    bubble_point, bubble_point_t, critical_point, dew_point, dew_point_t,
+    equilibrium_liquid_density, fit_binary, fit_gc, fit_pure, gc_binary_pxy, gc_binary_txy,
+    gc_helmholtz_energy_density, gc_properties, liquid_density, make_batch, mix_derivatives,
+    mix_helmholtz_energy_density, mix_properties, precompute_pure, pure_derivatives,
+    pure_properties, pure_vle, vapor_pressure,
 )
 from feos_tpu_torch.kernels import build
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
+from feos_tpu_torch.ops.derivatives import state_derivatives
 from feos_tpu_torch.solvers.vle import _ETA_GRID
 from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, REDUCED_TO_PA_PER_KT, RGAS
 
@@ -147,6 +158,14 @@ GC_ASSOC_ANCHORS = {
             632.126428475],
 }
 GC_GOLDEN_ATOL = {"a": 1e-14, "p": 1e-14, "mu": 1e-13, "v": 1e-11}
+# phase 14: the binary workload built on bubble and dew points.  Rows of the
+# temperature solves, of their CPU reruns and implicit-function check, and of
+# fit_binary; the diagrams' grid (the JAX package's default)
+T_SIZES = (4_096, 100_000)
+N_CPU_T = 512
+FIT_BINARY_ROWS = 4_096
+FIT_BINARY_STEPS = 3
+DIAGRAM_POINTS = 51
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -777,33 +796,37 @@ def profile(phase, label, fn, record):
     """Where the time of one call of ``fn`` goes: the card's busy time
     (:func:`device_profile`) against the path's unprofiled median, added to
     its ``record``."""
+    t0 = time.perf_counter()
     busy, kernels, host_ops = device_profile(fn)
+    record["profile_s"] = time.perf_counter() - t0
     step = record["ms"]
     idle = f"idle share {1.0 - busy / step:.3f}" if kernels else "busy time not measured"
     print(f"phase {phase} profile of {label} (solve + backward): card busy {busy:.1f} ms in "
           f"{kernels} kernels, {host_ops} aten ops on the host; {idle} of the unprofiled "
-          f"median {step:.1f} ms")
+          f"median {step:.1f} ms; the profile took {record['profile_s']:.1f} s")
     record.update(busy_ms=busy if kernels else None, kernels=kernels, host_ops=host_ops)
 
 
 def device_profile(fn):
     """``(device ms, kernels, host ops)`` of one call of ``fn`` under
     ``torch.profiler``: the summed time and count of the kernels the card
-    ran, and the aten ops the host dispatched."""
+    ran, and the aten ops the host dispatched.  It reads the profiler's raw
+    events: ``prof.events()`` builds an event tree first, which took 171 s
+    for the 5 * 10^5 events of a config 3 bubble-temperature call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device_us, kernels, host_ops = 0.0, 0, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device_us += e.time_range.elapsed_us()
+    device_ns, kernels, host_ops = 0, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device_ns += e.duration_ns()
             kernels += 1
-        elif e.name.startswith("aten::"):
+        elif e.name().startswith("aten::"):
             host_ops += 1
-    return device_us / 1e3, kernels, host_ops
+    return device_ns / 1e6, kernels, host_ops
 
 
 def mixtures(dev):
@@ -1005,7 +1028,361 @@ def gc_fit(dev, p_data):
             "steps": GC_FIT_STEPS, "losses": losses.tolist()}
 
 
+def temperature_run(fn, params, kij, pressure, x1, t0, stats=None):
+    """One bubble or dew temperature call with the gradient of sum log T
+    over the converged rows in the parameters and kij: ``(nans, T,
+    [d/dparams, d/dkij])``."""
+    p = params.detach().requires_grad_()
+    k = kij.detach().requires_grad_()
+    t, nans = fn(p, k, pressure, x1, t0, stats=stats)
+    log_sum(nans, t).backward()
+    return nans, t.detach(), [p.grad, k.grad]
+
+
+def timed_calls(label, run, rows):
+    """Phase 14: a path's first call with its loop counts (``stats``), then
+    the median of MIX_REPS synchronised calls, each with the phi_d2 launches
+    it made; ``run(stats=None)`` returns ``(nans, values, gradients)``.
+    Checks that no call launched phi_d2, that every row converged and that
+    the gradients are finite.  Returns the first call's output and the
+    path's record."""
+    stats = {}
+    (nans, values, grads), sec, launches, _ = on_card(lambda: run(stats=stats))
+    n_ok = int((~nans).sum())
+    times = []
+    for _ in range(MIX_REPS):
+        _, t, n, _ = on_card(run)
+        times.append(t)
+        launches += n
+    step = statistics.median(times)
+    print(f"phase 14 {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
+          f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
+          f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, phi_d2 "
+          f"launches {launches}")
+    check(launches == 0, f"{label}: the path launched phi_d2")
+    check(n_ok == rows, f"{label}: only {n_ok} of {rows} rows converged")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
+    return (nans, values, grads), {
+        "launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+        "converged": n_ok, "rows": rows, "loops": stats}
+
+
+def recovers(label, t, temperature, rtol=1e-9):
+    """The temperature solve at the pressures of ``temperature`` returns
+    ``temperature``."""
+    rel = float((t / temperature - 1.0).abs().max())
+    print(f"  {label}: max |T / T_target - 1| {rel:.3e} (bound {rtol:g})")
+    check(rel <= rtol, f"{label}: the temperatures are not recovered")
+
+
+def implicit_function(label, fn, params, kij, t, x1, pressure, state, grads):
+    """dT/dtheta (dp/dT) + dp/dtheta = 0 per row on the first N_CPU_T rows,
+    theta the parameters and kij, with dp/dT and dp/dtheta from the pressure
+    solve at T warm from the target's state; ``grads`` are the gradients of
+    sum log T, so dT/dtheta = T grads.  The pressure solve differs from the
+    re-attached one by the Newton's tolerance, hence 1e-8 of each row's
+    largest dp/dtheta."""
+    sl = slice(0, N_CPU_T)
+    tt = t[sl].clone().requires_grad_()
+    p = params[sl].detach().requires_grad_()
+    k = kij[sl].detach().requires_grad_()
+    pr, nans = fn(p, k, tt, x1[sl], pressure[sl], state0=state[sl])
+    check(not bool(nans.any()), f"{label}: pressure solve at T failed")
+    pr.sum().backward()
+    worst = 0.0
+    for g, dp in zip(grads, (p.grad, k.grad)):
+        dt = (t[sl].reshape(-1, *([1] * (g.dim() - 1))) * g[sl])
+        res = dt * tt.grad.reshape(dt.shape[:1] + (1,) * (dt.dim() - 1)) + dp
+        scale = dp.reshape(len(dp), -1).abs().amax(1)
+        worst = max(worst, float((res.reshape(len(res), -1).abs().amax(1) / scale).max()))
+    print(f"  {label}: max |dT/dtheta dp/dT + dp/dtheta| / max|dp/dtheta| on {N_CPU_T} rows "
+          f"{worst:.3e} (bound 1e-8)")
+    check(worst <= 1e-8, f"{label}: the implicit-function identity does not hold")
+
+
+def mixture_temperatures(dev):
+    """Phase 14(a): config 3 bubble and dew temperatures at the port's own
+    pressures of T = linspace(140, 160, B), from 1.05 T, with the gradient
+    of sum log T; the implicit-function identity; the first N_CPU_T rows on
+    the CPU.  Returns the paths, the 4,096-row bubble pressures (the data
+    of 14(c)) and the 100,000-row bubble states (14(e))."""
+    paths, data, states = {}, None, None
+    for rows in T_SIZES:
+        temperature = f64(np.linspace(140.0, 160.0, rows), dev)
+        params = f64(np.tile(CONFIG3, (rows, 1, 1)), dev)
+        kij = f64(np.tile(CONFIG3_KIJ, (rows, 1)), dev)
+        x1 = f64(np.full(rows, 0.5), dev)
+        for name, fn_p, fn_t in (("bubble", bubble_point, bubble_point_t),
+                                 ("dew", dew_point, dew_point_t)):
+            with torch.no_grad():
+                target, nans, state = fn_p(params, kij, temperature, x1,
+                                           f64(np.full(rows, 1e5), dev), state_output=True)
+            check(not bool(nans.any()), f"config 3 {name} pressures at B={rows}")
+            label = f"config 3 {name} T B={rows}"
+            run = partial(temperature_run, fn_t, params, kij, target, x1, 1.05 * temperature)
+            (nans, t, grads), paths[label] = timed_calls(label, run, rows)
+            recovers(label, t, temperature)
+            implicit_function(label, fn_p, params, kij, t, x1, target, state, grads)
+            c0 = time.perf_counter()
+            c_nans, c_t, c_grads = run_cpu_rows(run, N_CPU_T)
+            print(f"  {label}: CPU rerun of {N_CPU_T} rows {time.perf_counter() - c0:.1f} s")
+            agree(f"{label} T", nans[:N_CPU_T].cpu(), t[:N_CPU_T].cpu(), c_nans, c_t, 1e-10)
+            agree_gradients(label, ("params", "kij"), (g[:N_CPU_T] for g in grads), c_grads)
+            if name == "bubble" and rows == FIT_BINARY_ROWS:
+                data = target
+            if name == "bubble" and rows == T_SIZES[-1]:
+                states = (params, kij, temperature, x1, state)
+                profile(14, label, run, paths[label])
+    return paths, data, states
+
+
+def run_cpu_rows(run, n):
+    """``run`` on the first n rows of its bound tensor arguments, on the
+    CPU."""
+    args = [x[:n].cpu() if torch.is_tensor(x) else x for x in run.args]
+    return partial(run.func, *args)()
+
+
+def gc_temperature_run(model, name, pressure, x1, t0, stats=None):
+    """One gc bubble or dew temperature call with the gradient of sum log T
+    over the converged rows in the segment parameters, k_ab and phi."""
+    model.zero_grad(set_to_none=True)
+    fn = model.bubble_point_t if name == "bubble" else model.dew_point_t
+    t, nans = fn(pressure, x1, t0, stats=stats)
+    log_sum(nans, t).backward()
+    return nans, t.detach(), [x.grad for x in (model.parameter, model.kab, model.phi)]
+
+
+def gc_temperatures(dev):
+    """Phase 14(b): config 4 bubble and dew temperatures at the port's own
+    pressures, as 14(a), with gradients in the segment parameters, k_ab and
+    phi, the shared gradients of N_CPU_T-row runs on the card against the
+    CPU; the golden topologies' bubble temperatures at N_CPU_T rows (every
+    association regime), one call on each device.  Returns the paths and
+    the 100,000-row bubble states (14(e))."""
+    paths, states = {}, None
+    for rows in T_SIZES:
+        temperature = f64(np.linspace(140.0, 160.0, rows), dev)
+        x1 = f64(np.full(rows, 0.5), dev)
+        system = GcSystem(rows)
+        model = system.model(dev)
+        for name in ("bubble", "dew"):
+            with torch.no_grad():
+                target, nans, state = getattr(model, f"{name}_point")(
+                    temperature, x1, f64(np.full(rows, 1e5), dev), state_output=True)
+            check(not bool(nans.any()), f"config 4 {name} pressures at B={rows}")
+            label = f"gc config 4 {name} T B={rows}"
+            args = (target, x1, 1.05 * temperature)
+            (nans, t, _), paths[label] = timed_calls(
+                label, partial(gc_temperature_run, model, name, *args), rows)
+            recovers(label, t, temperature)
+            n = N_CPU_T
+            c0 = time.perf_counter()
+            card = gc_temperature_run(system.model(dev, n), name, *(x[:n] for x in args))
+            on_cpu = gc_temperature_run(system.model("cpu", n), name,
+                                        *(x[:n].cpu() for x in args))
+            print(f"  {label}: {n} rows on the card and on the CPU "
+                  f"{time.perf_counter() - c0:.1f} s")
+            agree(f"{label} T", nans[:n].cpu(), t[:n].cpu(), on_cpu[0], on_cpu[1], 1e-10)
+            agree_gradients(label, ("segment parameters", "k_ab", "phi"), card[2], on_cpu[2])
+            if name == "bubble" and rows == T_SIZES[-1]:
+                states = (model, temperature, x1, state)
+                profile(14, label, partial(gc_temperature_run, model, name, *args),
+                        paths[label])
+
+    golden = GcSystem(N_CPU_T, golden=True)
+    idx = np.arange(N_CPU_T) % len(GC_ASSOC_ANCHORS["bubble"])
+    args = [f64(np.asarray(GC_ASSOC_ANCHORS["bubble"])[idx], "cpu"),
+            f64(np.full(N_CPU_T, 0.4), "cpu"), f64(np.full(N_CPU_T, 315.0), "cpu")]
+    label = f"gc golden topologies bubble T B={N_CPU_T}"
+    stats = {}
+    (nans, t, grads), sec, launches, _ = on_card(lambda: gc_temperature_run(
+        golden.model(dev), "bubble", *(x.to(dev) for x in args), stats=stats))
+    print(f"phase 14 {label}: converged {int((~nans).sum())} of {N_CPU_T}, one call "
+          f"{sec * 1e3:.1f} ms, loops {stats}, phi_d2 launches {launches}")
+    check(launches == 0 and not bool(nans.any()), f"{label}: launches or failed rows")
+    recovers(label, t, 300.0)
+    c0 = time.perf_counter()
+    c_nans, c_t, c_grads = gc_temperature_run(golden.model("cpu"), "bubble", *args)
+    print(f"  {label}: the CPU's call {time.perf_counter() - c0:.1f} s")
+    agree(f"{label} T", nans.cpu(), t.cpu(), c_nans, c_t, 1e-10)
+    agree_gradients(label, ("segment parameters", "k_ab", "phi"), grads, c_grads)
+    paths[label] = {"launches": launches, "by_k": {}, "ms": sec * 1e3, "loops": stats}
+    return paths, states
+
+
+def binary_fit(dev, p_data):
+    """Phase 14(c): FIT_BINARY_STEPS steps of fit_binary on the
+    FIT_BINARY_ROWS config 3 rows from kij = 0, eps_AiBj = 900, against the
+    bubble pressures at [-0.15, 1000]; the fit of the first N_CPU_T rows on
+    the card against the CPU at 1e-8."""
+    temperature = np.linspace(140.0, 160.0, FIT_BINARY_ROWS)
+
+    def run(rows, d):
+        return fit_binary(CONFIG3, temperature[:rows], np.full(rows, 0.5),
+                          p_data[:rows].cpu().numpy(), kij0=0.0, epsilon_k_aibj0=900.0,
+                          steps=FIT_BINARY_STEPS, device=d)
+
+    c0 = time.perf_counter()
+    card, on_cpu = run(N_CPU_T, dev), run(N_CPU_T, "cpu")
+    print(f"phase 14 fit_binary: {N_CPU_T} rows on the card and on the CPU "
+          f"{time.perf_counter() - c0:.1f} s")
+    res, sec, launches, _ = on_card(lambda: run(FIT_BINARY_ROWS, dev))
+    losses = res.loss_history.cpu().numpy()
+    print(f"phase 14 fit_binary: B={FIT_BINARY_ROWS}, {FIT_BINARY_STEPS} steps (and the cold "
+          f"solve that seeds them) in {sec * 1e3:.1f} ms, {sec / FIT_BINARY_STEPS * 1e3:.1f} "
+          f"ms a step, losses {losses.tolist()}, [kij, eps_AiBj] {res.parameters.tolist()}, "
+          f"phi_d2 launches {launches}")
+    check(launches == 0, "fit_binary launched phi_d2")
+    check(bool(np.isfinite(losses).all()) and bool(np.all(np.diff(losses) < 0.0)),
+          "fit_binary loss does not fall")
+    for what, a, b in (("loss history", card.loss_history, on_cpu.loss_history),
+                       ("[kij, eps_AiBj]", card.parameters, on_cpu.parameters)):
+        no = torch.zeros(b.shape, dtype=torch.bool)
+        agree(f"fit_binary {what}", no, a.cpu(), no, b, 1e-8)
+    return {"launches": launches, "by_k": {}, "ms_per_step": sec / FIT_BINARY_STEPS * 1e3,
+            "steps": FIT_BINARY_STEPS, "losses": losses.tolist()}
+
+
+def closes(label, dew, temperature, y1, pressure):
+    """The dew curve closes: a dew solve at (T, y1) returns the diagram's
+    pressure within 1e-8."""
+    with torch.no_grad():
+        p, nans = dew(temperature, torch.stack([y1, 1.0 - y1], 1), pressure)
+    rel = float((p / pressure - 1.0).abs().max())
+    print(f"  {label}: dew pressure at (T, y1) against the diagram's, max rel err {rel:.3e} "
+          f"(bound 1e-8)")
+    check(not bool(nans.any()) and rel <= 1e-8, f"{label}: the dew curve does not close")
+
+
+def diagrams(dev):
+    """Phase 14(d): p-x-y at 150 K and T-x-y at 1e5 Pa of config 3's pair
+    and of the non-associating pair, and the gc diagrams of config 4 at
+    300 K and 3e5 Pa, at DIAGRAM_POINTS points, each with its phi_d2
+    launches by k (the pure seeds) and the closure of its dew curve."""
+    paths = {}
+    n = DIAGRAM_POINTS
+    for pair, system, kij in (("config 3", CONFIG3, CONFIG3_KIJ),
+                              ("non-associating", NONASSOC, NONASSOC_KIJ)):
+        batch = f64(np.tile(system, (n, 1, 1)), dev)
+        kb = f64(np.tile(kij, (n, 1)), dev)
+        dew = partial(dew_point, batch, kb)
+        for kind, fn, arg in (("p-x-y", binary_pxy, 150.0), ("T-x-y", binary_txy, 1e5)):
+            label = f"{pair} {kind}"
+            with torch.no_grad():
+                d, sec, launches, by_k = on_card(lambda: fn(system, kij, arg, n, device=dev))
+            paths[label] = report(14, label, d.nans, sec, launches, by_k)
+            check(launches > 0, f"{label}: the pure seeds launched no phi_d2")
+            check(not bool(d.nans.any()), f"{label}: failed rows")
+            if kind == "p-x-y":
+                closes(label, dew, torch.full_like(d.p, arg), d.y1, d.p)
+            else:
+                closes(label, dew, d.t, d.y1, torch.full_like(d.t, arg))
+    model = GcSystem(n).model(dev)
+    for kind, fn, arg in (("p-x-y", gc_binary_pxy, 300.0), ("T-x-y", gc_binary_txy, 3e5)):
+        label = f"gc config 4 {kind}"
+        with torch.no_grad():
+            d, sec, launches, by_k = on_card(lambda: fn(model, arg, n_points=n))
+        paths[label] = report(14, label, d.nans, sec, launches, by_k)
+        check(launches == 0 and not bool(d.nans.any()), f"{label}: launches or failed rows")
+        if kind == "p-x-y":
+            closes(label, model.dew_point, torch.full_like(d.p, arg), d.y1, d.p)
+        else:
+            closes(label, model.dew_point, d.t, d.y1, torch.full_like(d.t, arg))
+    return paths
+
+
+def property_floors(props, temperature, rho, stiff):
+    """Per field, the f64 noise of the liquid p~ (P_NOISE times the ray
+    stiffness rho dp~/drho) times the field's sensitivity to p~; see
+    :func:`residual_properties`."""
+    noise = P_NOISE * stiff
+    to_pa = temperature * REDUCED_TO_PA_PER_KT
+    rho_t = rho.sum(-1)
+    rt = RGAS * temperature
+    x = props.c_p_res / RGAS - props.c_v_res / RGAS + 1.0
+    return {
+        "pressure": to_pa * noise,
+        "compressibility": noise / rho_t,
+        "h_res": rt * noise / rho_t,
+        "g_res": rt * noise / rho_t,
+        "c_p_res": RGAS * 2.0 * torch.sqrt(x.abs() / (rho_t * stiff)) * noise,
+        "ln_phi": (noise / (props.pressure / to_pa).abs())[:, None],
+    }
+
+
+def ray_stiffness(helmholtz, temperature, rho):
+    """rho dp~/drho along the composition ray, rho_t + d2A/dV2 at V = 1,
+    from ``helmholtz(T, rho) -> phi``."""
+    _, _, _, _, a_vv = state_derivatives(partial(helmholtz, temperature), rho)
+    return rho.sum(-1) + a_vv
+
+
+@torch.no_grad()
+def property_case(label, properties, helmholtz, properties_cpu, temperature, z, state):
+    """Phase 14(e), one model: the property set at its converged bubble
+    states, liquid and vapor; isofugacity across the phases within 1e-8
+    plus the liquid p~'s f64 floor; the first N_CPU rows of each phase
+    against the CPU at 1e-10 plus the same floors.  ``properties(T, rho)``
+    and ``helmholtz(T, rho)`` are the model's on the card,
+    ``properties_cpu(T, rho)`` its first N_CPU rows' on the CPU."""
+    rows = len(temperature)
+    phases = {"liquid": z * torch.exp(state[:, 2:3]), "vapor": torch.exp(state[:, :2])}
+    out, sec, launches, _ = on_card(
+        lambda: {name: properties(temperature, rho) for name, rho in phases.items()})
+    path = report(14, f"{label} (liquid and vapor)", torch.zeros(2 * rows, dtype=torch.bool),
+                  sec, launches, {})
+    check(launches == 0, f"{label}: launched phi_d2")
+    floors = {name: property_floors(out[name], temperature, rho,
+                                    ray_stiffness(helmholtz, temperature, rho))
+              for name, rho in phases.items()}
+    for name, props in out.items():
+        for field_name, field in zip(ResidualProperties._fields, props):
+            check(bool(torch.isfinite(field).all()), f"{label} {name} {field_name} not finite")
+    y = phases["vapor"] / phases["vapor"].sum(-1, keepdim=True)
+    err = (torch.log(z) + out["liquid"].ln_phi - torch.log(y) - out["vapor"].ln_phi).abs()
+    allowed = 1e-8 + floors["liquid"]["ln_phi"] + floors["vapor"]["ln_phi"]
+    worst = float((err / allowed).max())
+    print(f"  {label} isofugacity on {rows} rows: max |ln x_i phi_i,L - ln y_i phi_i,V| "
+          f"{float(err.max()):.3e}, max err / (1e-8 + p~ floors) {worst:.3e}")
+    check(worst <= 1.0, f"{label}: isofugacity")
+    n = N_CPU
+    for name, rho in phases.items():
+        on_cpu = properties_cpu(temperature[:n].cpu(), rho[:n].cpu())
+        for field_name, field, cpu_field in zip(ResidualProperties._fields, out[name],
+                                                on_cpu):
+            got = field[:n].cpu()
+            floor = floors[name].get(field_name)
+            floor = None if floor is None else floor[:n].cpu().expand_as(got)
+            no = torch.zeros(got.shape, dtype=torch.bool)
+            agree(f"{label} {name} {field_name}", no.flatten(), got.flatten(),
+                  no.flatten(), cpu_field.flatten(),
+                  1e-10, None if floor is None else floor.flatten())
+    return path
+
+
+def properties_phase(mix_states, gc_states):
+    """Phase 14(e): mixture properties at the 100,000 converged config 3
+    bubble states of 14(a) and gc properties at config 4's of 14(b)."""
+    params, kij, temperature, x1, state = mix_states
+    z = torch.stack([x1, 1.0 - x1], 1)
+    n = N_CPU
+    paths = {"mix_properties": property_case(
+        "mix_properties config 3", partial(mix_properties, params, kij),
+        partial(mix_helmholtz_energy_density, params, kij),
+        partial(mix_properties, params[:n].cpu(), kij[:n].cpu()), temperature, z, state)}
+    model, temperature, x1, state = gc_states
+    g = model.params.detach()
+    g_cpu = GcSystem(n).model("cpu", n).params.detach()
+    paths["gc_properties"] = property_case(
+        "gc_properties config 4", partial(gc_properties, g),
+        partial(gc_helmholtz_energy_density, g), partial(gc_properties, g_cpu), temperature,
+        torch.stack([x1, 1.0 - x1], 1), state)
+    return paths
+
+
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one card")
     dev = torch.device("cuda", 0)
@@ -1051,6 +1428,25 @@ def main():
     # phase 13: gc-PC-SAFT (torch ops only: no phi_d2 launch)
     paths["gc_derivatives"] = gc_derivative_set(dev)
     paths.update(gc_mixtures(dev))
+
+    # phase 14: the binary workload on bubble and dew points (torch ops; the
+    # diagrams' pure seeds launch phi_d2)
+    t14 = time.perf_counter()
+    mix_paths, fit_data, mix_states = mixture_temperatures(dev)
+    paths.update(mix_paths)
+    t14b = time.perf_counter()
+    gc_paths, gc_states = gc_temperatures(dev)
+    paths.update(gc_paths)
+    t14c = time.perf_counter()
+    paths["fit_binary"] = binary_fit(dev, fit_data)
+    t14d = time.perf_counter()
+    paths.update(diagrams(dev))
+    t14e = time.perf_counter()
+    paths.update(properties_phase(mix_states, gc_states))
+    done = time.perf_counter()
+    print(f"phase 14: {done - t14:.1f} s: (a) {t14b - t14:.1f}, (b) {t14c - t14b:.1f}, "
+          f"(c) {t14d - t14c:.1f}, (d) {t14e - t14d:.1f}, (e) {done - t14e:.1f}")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main")
 
     shapes = kernel["shapes"]
     ref = shapes["(B, 2)"]  # the most launched shape, with (B, 1)

@@ -6,10 +6,11 @@ liquid densities, critical points and boiling temperatures with exact
 reverse-mode gradients with respect to all 8 parameters of every row, and
 the parameter fit built on them.  Binary mixtures: the Helmholtz energy
 with its association fixed points and derivative set (A, p~, mu, v), and
-batched bubble and dew pressures with gradients with respect to the
-parameters, kij and epsilon_k_AiBj.  Heterosegmented (group-contribution)
-binaries: the same, with gradients in the segment parameters, k_ab and
-phi, and the k_ab fit.
+batched bubble and dew pressures and temperatures with gradients with
+respect to the parameters, kij and epsilon_k_AiBj, residual properties,
+p-x-y and T-x-y diagrams, and the kij fit.  Heterosegmented
+(group-contribution) binaries: the same, with gradients in the segment
+parameters, k_ab and phi, and the k_ab fit.
 
 * :class:`PcSaftPure` -- ``nn.Module`` facade holding ``(B, 8)`` parameters;
 * :func:`vapor_pressure`, :func:`liquid_density`,
@@ -20,15 +21,23 @@ phi, and the k_ab fit.
 * :class:`PcSaftMix` -- ``nn.Module`` facade holding ``(B, 2, 8)``
   parameters and ``(B, 2)`` kij; :func:`bubble_point`, :func:`dew_point`
   -- functional forms, ``(p, nans)`` as in the JAX package;
-  :func:`mix_derivatives`, :func:`mix_helmholtz_energy_density`;
+  :func:`bubble_point_t`, :func:`dew_point_t` -- temperatures at given
+  pressure, ``(t, nans)``; :func:`mix_derivatives`,
+  :func:`mix_helmholtz_energy_density`; :func:`mix_properties`;
 * :class:`GcPcSaftMix` -- ``nn.Module`` facade holding the ``(S, 8)``
   segment parameters, the k_ab record values and phi, over a
   :class:`GcTopology` (molecules, host data); :func:`gc_bubble_point`,
   :func:`gc_dew_point` -- functional forms on assembled :class:`GcParams`,
-  ``(p, nans)``; :func:`gc_derivatives`, :func:`gc_helmholtz_energy_density`,
-  :func:`precompute_gc`;
-* :func:`fit_gc` -- k_ab regression on gc bubble pressures, warm-started
-  from step to step;
+  ``(p, nans)``; :func:`gc_incipient_temperature` -- bubble or dew
+  temperatures, ``(t, nans)``; :func:`gc_derivatives`,
+  :func:`gc_helmholtz_energy_density`, :func:`precompute_gc`;
+  :func:`gc_properties`;
+* :func:`binary_loss`, :func:`fit_binary` -- kij (and epsilon_k_AiBj)
+  regression on bubble pressures; :func:`fit_gc` -- k_ab regression on gc
+  bubble pressures; both warm-started from step to step;
+* :func:`binary_pxy`, :func:`binary_txy`, :func:`gc_binary_pxy`,
+  :func:`gc_binary_txy` -- phase diagrams (:class:`BinaryPxy`,
+  :class:`BinaryTxy`);
 * :mod:`feos_tpu_torch.compat` -- the reference's numpy contract
   (``PcSaft``, ``GcPcSaft``);
 * :func:`phi_d2` -- the hand-written CUDA kernel behind the solvers' phi
@@ -42,6 +51,9 @@ unless the caller asks for the CPU.  The package imports neither jax nor
 
 from . import units
 from .data import make_batch
+from .diagrams import (
+    BinaryPxy, BinaryTxy, binary_pxy, binary_txy, gc_binary_pxy, gc_binary_txy,
+)
 from .kernels.phi_d2 import phi_d2
 from .models.gc_pcsaft import (
     GcParams,
@@ -51,13 +63,16 @@ from .models.gc_pcsaft import (
     gc_derivatives,
     gc_dew_point,
     gc_helmholtz_energy_density,
+    gc_incipient_temperature,
     precompute_gc,
 )
 from .models.pcsaft_mix import (
     MixParams,
     PcSaftMix,
     bubble_point,
+    bubble_point_t,
     dew_point,
+    dew_point_t,
     precompute_mix,
 )
 from .models.pcsaft_mix import derivatives as mix_derivatives
@@ -76,11 +91,15 @@ from .models.pcsaft_pure import (
     pure_derivatives,
     vapor_pressure,
 )
-from .properties import ResidualProperties, pure_properties
-from .regression import FitResult, fit_gc, fit_pure, masked_relative_sse, pure_loss
+from .properties import ResidualProperties, gc_properties, mix_properties, pure_properties
+from .regression import (
+    FitResult, binary_loss, fit_binary, fit_gc, fit_pure, masked_relative_sse, pure_loss,
+)
 from .solvers.vle import mix_vle, npt_density, pure_critical, pure_vle
 
 __all__ = [
+    "BinaryPxy",
+    "BinaryTxy",
     "FitResult",
     "GcParams",
     "GcPcSaftMix",
@@ -88,25 +107,36 @@ __all__ = [
     "MixParams",
     "PcSaftMix",
     "PcSaftPure",
-    "PurePre",
     "PureParams",
+    "PurePre",
     "ResidualProperties",
+    "binary_loss",
+    "binary_pxy",
+    "binary_txy",
     "boiling_temperature",
     "bubble_point",
+    "bubble_point_t",
     "critical_point",
     "dew_point",
+    "dew_point_t",
     "equilibrium_liquid_density",
+    "fit_binary",
     "fit_gc",
     "fit_pure",
+    "gc_binary_pxy",
+    "gc_binary_txy",
     "gc_bubble_point",
     "gc_derivatives",
     "gc_dew_point",
     "gc_helmholtz_energy_density",
+    "gc_incipient_temperature",
+    "gc_properties",
     "liquid_density",
     "make_batch",
     "masked_relative_sse",
     "mix_derivatives",
     "mix_helmholtz_energy_density",
+    "mix_properties",
     "mix_vle",
     "mu_res_pure",
     "npt_density",

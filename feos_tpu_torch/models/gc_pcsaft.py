@@ -492,6 +492,24 @@ def gc_dew_point(params: GcParams, temperature, vapor_molefracs, pressure,
                                  full_output, state0, state_output, stats)
 
 
+def gc_incipient_temperature(params: GcParams, pressure, molefracs, t0, bubble=True,
+                             full_output=False, stats=None):
+    """Batched gc bubble (``bubble=True``) or dew temperature in K at
+    ``pressure`` [Pa], with gradients in whatever ``params`` (the segment
+    parameters, k_ab and phi behind them) and ``pressure`` require: the
+    warm-started secant of
+    :func:`feos_tpu_torch.models.pcsaft_mix.bubble_point_t` over
+    :func:`gc_incipient_property`.  Returns ``(t, nans)`` and with
+    ``full_output`` the incipient composition ``(B, 2)``; ``stats``
+    receives the secant's iterations as ``outer``."""
+    from ..solvers.tsolve import incipient_temperature
+
+    return incipient_temperature(
+        partial(gc_incipient_property, params, bubble=bubble),
+        partial(gc_incipient_property, params.detach(), bubble=bubble),
+        pressure, molefracs, t0, params.m_mix.shape[0], params.m.device, full_output, stats)
+
+
 class GcPcSaftMix(nn.Module):
     """Module facade (reference ``GcPcSaftMix``, feos_torch/gc_pcsaft.py:13).
 
@@ -542,3 +560,22 @@ class GcPcSaftMix(nn.Module):
                   state0=None, state_output=False, stats=None):
         return gc_dew_point(self.params, temperature, vapor_molefracs, pressure,
                             full_output, state0, state_output, stats)
+
+    def bubble_point_t(self, pressure, liquid_molefracs, t0, full_output=False, stats=None):
+        """Bubble-point temperature at given pressure; see
+        :func:`gc_incipient_temperature`."""
+        return gc_incipient_temperature(self.params, pressure, liquid_molefracs, t0, True,
+                                        full_output, stats)
+
+    def dew_point_t(self, pressure, vapor_molefracs, t0, full_output=False, stats=None):
+        """Dew-point temperature at given pressure; see
+        :func:`gc_incipient_temperature`."""
+        return gc_incipient_temperature(self.params, pressure, vapor_molefracs, t0, False,
+                                        full_output, stats)
+
+    def residual_properties(self, temperature, density):
+        """Residual property set at (T, rho_i [A^-3]); see
+        :func:`feos_tpu_torch.properties.gc_properties`."""
+        from ..properties import gc_properties
+
+        return gc_properties(self.params, self._tensor(temperature), self._tensor(density))

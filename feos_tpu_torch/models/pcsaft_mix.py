@@ -537,6 +537,47 @@ def dew_point(parameters, kij, temperature, vapor_molefracs, pressure,
                                False, full_output, state0, state_output, stats)
 
 
+def _incipient_temperature(parameters, kij, pressure, molefracs, t0, bubble,
+                           full_output=False, stats=None):
+    """Bubble or dew temperature: the warm-started secant over
+    :func:`_incipient_property`
+    (:func:`feos_tpu_torch.solvers.tsolve.incipient_temperature`)."""
+    from ..solvers.tsolve import incipient_temperature
+
+    kij_s = None if kij is None else kij.detach()
+    return incipient_temperature(
+        partial(_incipient_property, parameters, kij, bubble=bubble),
+        partial(_incipient_property, parameters.detach(), kij_s, bubble=bubble),
+        pressure, molefracs, t0, parameters.shape[0], parameters.device, full_output, stats)
+
+
+def bubble_point_t(parameters, kij, pressure, liquid_molefracs, t0, full_output=False,
+                   stats=None):
+    """Batched bubble-point temperature in K at ``pressure`` [Pa], with
+    gradients in the parameters, kij and the pressure (beyond the reference,
+    which is pressure-explicit only).
+
+    A cold bubble solve at the initial estimate ``t0`` seeds the solver
+    state, a detached secant in (1/T, ln p) runs warm solves from it, and
+    one differentiable warm solve at the converged temperature plus one
+    symbolic Newton step in T re-attach the gradients.  ``pressure`` and
+    ``t0`` are scalars or ``(B,)``; ``liquid_molefracs`` is x1 per row or
+    ``(B, 2)``.  Returns ``(t, nans)``, NaN on failed rows, and with
+    ``full_output`` also the vapor composition ``(B, 2)``.  If ``stats`` is a
+    dict, it receives the secant's iterations as ``outer``.
+    """
+    return _incipient_temperature(parameters, kij, pressure, liquid_molefracs, t0, True,
+                                  full_output, stats)
+
+
+def dew_point_t(parameters, kij, pressure, vapor_molefracs, t0, full_output=False,
+                stats=None):
+    """Batched dew-point temperature in K at ``pressure`` [Pa]; with
+    ``full_output`` also the liquid composition.  See :func:`bubble_point_t`."""
+    return _incipient_temperature(parameters, kij, pressure, vapor_molefracs, t0, False,
+                                  full_output, stats)
+
+
 class PcSaftMix(nn.Module):
     """Module facade over the functional API (reference ``PcSaftMix``,
     feos_torch/pcsaft_mix.py:12); binary mixtures only.
@@ -577,3 +618,22 @@ class PcSaftMix(nn.Module):
         return dew_point(self.params, self.kij, self._tensor(temperature),
                          self._tensor(vapor_molefracs), self._tensor(pressure),
                          full_output, state0, state_output, stats)
+
+    def bubble_point_t(self, pressure, liquid_molefracs, t0, full_output=False, stats=None):
+        """Bubble-point temperature at given pressure; see :func:`bubble_point_t`."""
+        return bubble_point_t(self.params, self.kij, self._tensor(pressure),
+                              self._tensor(liquid_molefracs), self._tensor(t0), full_output,
+                              stats)
+
+    def dew_point_t(self, pressure, vapor_molefracs, t0, full_output=False, stats=None):
+        """Dew-point temperature at given pressure; see :func:`dew_point_t`."""
+        return dew_point_t(self.params, self.kij, self._tensor(pressure),
+                           self._tensor(vapor_molefracs), self._tensor(t0), full_output, stats)
+
+    def residual_properties(self, temperature, density):
+        """Residual property set at (T, rho_i [A^-3]); see
+        :func:`feos_tpu_torch.properties.mix_properties`."""
+        from ..properties import mix_properties
+
+        return mix_properties(self.params, self.kij, self._tensor(temperature),
+                              self._tensor(density))

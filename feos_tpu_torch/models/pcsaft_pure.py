@@ -357,7 +357,9 @@ def boiling_temperature(parameters: torch.Tensor, pressure, t0, stats=None):
 
     A detached secant iteration in (1/T, ln p) over :func:`vapor_pressure`
     from the initial estimate ``t0``, each step a cold vapor-pressure
-    solve, then one symbolic Newton step in T re-attaches the gradients
+    solve (the pure solver carries no state between steps; the mixture and
+    gc bubble and dew temperatures pass theirs to the loop), then one
+    symbolic Newton step in T re-attaches the gradients
     (:mod:`feos_tpu_torch.solvers.tsolve`).  ``pressure`` and ``t0`` are
     scalars or ``(B,)``.  If ``stats`` is a dict, it receives the secant's
     iterations as ``outer``.

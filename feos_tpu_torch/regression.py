@@ -1,9 +1,10 @@
 """PC-SAFT parameter regression with ``torch.optim``.
 
-Counterpart of ``feos_tpu/regression.py``'s ``pure_loss``, ``fit_pure`` and
-``fit_gc``: relative least-squares losses over the converged rows (vapor
-pressures and liquid densities of pure components; bubble pressures of gc
-binaries), minimised by Adam through the solvers' re-attached gradients.
+Counterpart of ``feos_tpu/regression.py``'s ``pure_loss``, ``fit_pure``,
+``binary_loss``, ``fit_binary`` and ``fit_gc``: relative least-squares
+losses over the converged rows (vapor pressures and liquid densities of
+pure components; bubble pressures of binaries and of gc binaries),
+minimised by Adam through the solvers' re-attached gradients.
 A fit is a plain Python loop (:func:`run_adam`), one host round trip a
 step; the bubble-point fits carry the solver's converged state from step
 to step.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .models.gc_pcsaft import GcTopology, assemble, gc_bubble_point, kab_matrix
+from .models.pcsaft_mix import bubble_point
 from .models.pcsaft_pure import liquid_density, vapor_pressure
 
 F64 = torch.float64
@@ -124,6 +126,65 @@ def bubble_loss(p, nans, p_data, state, state0=None):
     if state0 is not None:
         state = torch.where(nans[:, None], state0, state)
     return loss, state.detach()
+
+
+def binary_loss(kij_pair, parameters, temperature, liquid_molefracs, p_bubble, state0=None,
+                return_state=False):
+    """Relative-SSE loss of bubble pressures for one binary pair.
+
+    ``kij_pair`` is the ``(2,)`` tensor ``[k_ij, epsilon_k_AiBj]`` shared by
+    every data row, ``parameters`` the ``(2, 8)`` component parameters, and
+    the data are ``(B,)`` tensors of temperatures, liquid mole fractions x1
+    and bubble pressures [Pa], which are also the solver's pressure
+    estimates.  ``state0 (B, 3)`` is a converged
+    solver state from a previous call at nearby parameters (a warm start).
+    Returns the loss and, with ``return_state``, the converged state to
+    carry, detached, in which failed rows keep ``state0``
+    (:func:`bubble_loss`).
+    """
+    B = temperature.shape[0]
+    p, nans, state = bubble_point(parameters.expand(B, 2, 8), kij_pair.expand(B, 2),
+                                  temperature, liquid_molefracs, p_bubble, state0=state0,
+                                  state_output=True)
+    loss, state = bubble_loss(p, nans, p_bubble, state, state0)
+    return (loss, state) if return_state else loss
+
+
+def fit_binary(parameters, temperature, liquid_molefracs, p_bubble, kij0=0.0,
+               epsilon_k_aibj0=None, steps=100, device="cuda"):
+    """Fit the binary interaction parameters k_ij and, optionally, the
+    cross-association energy epsilon_k_AiBj to bubble-point data.
+
+    The ``(2, 8)`` component parameters stay fixed; the data are ``(B,)``
+    temperatures, liquid mole fractions x1 and bubble pressures [Pa] (also
+    the solver's pressure estimates), as arrays or tensors.  Adam with lr
+    5e-3 (:func:`run_adam`, the JAX package's ``optax.adam(5e-3)``) runs on
+    theta = ``[k_ij, epsilon_k_AiBj / |epsilon_k_aibj0|]``; with
+    ``epsilon_k_aibj0`` None, epsilon_k_AiBj stays 0 (the combining rule)
+    and only k_ij is fitted.  One cold solve seeds the state that
+    warm-starts every step.  The fit runs on ``device``, the card unless
+    the caller asks for the CPU.  Returns ``FitResult([k_ij,
+    epsilon_k_AiBj], loss_history)``.
+    """
+    def f64(x):
+        return torch.as_tensor(x, dtype=F64, device=device)
+
+    parameters, temperature, liquid_molefracs, p_bubble = map(
+        f64, (parameters, temperature, liquid_molefracs, p_bubble))
+    fit_eps = epsilon_k_aibj0 is not None
+    eps0 = float(epsilon_k_aibj0) if fit_eps else 0.0
+    eps_scale = abs(eps0) if eps0 != 0.0 else 1.0
+    scale = f64([1.0, eps_scale if fit_eps else 0.0])
+
+    def loss_fn(theta, state0):
+        return binary_loss(theta * scale, parameters, temperature, liquid_molefracs, p_bubble,
+                           state0=state0, return_state=True)
+
+    theta0 = f64([float(kij0), eps0 / eps_scale])
+    with torch.no_grad():
+        _, state = loss_fn(theta0, None)
+    theta, losses = run_adam(theta0, 5e-3, steps, loss_fn, state)
+    return FitResult(theta * scale, losses)
 
 
 def fit_gc(segment_identifier, parameter, segment_lists, bond_lists,

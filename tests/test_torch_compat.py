@@ -6,13 +6,12 @@ failure mask (tests/test_compat.py:102-113), with values held to the C++
 oracle and to the port's own solvers.
 """
 
-import time
 
 import numpy as np
 import pytest
 import torch
 
-from feos_tpu import cpu_backend
+from _torch_oracle import backend  # noqa: F401 (a fixture)
 from feos_tpu_torch.compat import PcSaft
 from feos_tpu_torch.solvers.vle import npt_density, pure_vle
 from feos_tpu_torch.units import PA_PER_KT_TO_REDUCED
@@ -20,17 +19,6 @@ from feos_tpu_torch.units import PA_PER_KT_TO_REDUCED
 NONASSOC = [[1, 3.5, 150, 0, 0, 0, 0, 0], [1, 3.5, 200, 0, 0, 0, 0, 0]]
 CONFIG3 = [[1, 3.5, 150, 0, 0.02, 1500, 1, 1], [1, 3.5, 200, 0, 0.03, 2500, 1, 1]]
 README_PARAMS = [1.5, 3.5, 250.0, 0.0, 0.03, 1500.0, 1.0, 1.0]
-
-
-@pytest.fixture(scope="module")
-def backend():
-    """``cpu_backend`` once its library loads (another test process may be
-    building it: retry a few times, 2 s apart)."""
-    for _ in range(10):
-        if cpu_backend.available():
-            break
-        time.sleep(2.0)
-    return cpu_backend
 
 
 @pytest.mark.parametrize("method", ["bubble_point", "dew_point"])

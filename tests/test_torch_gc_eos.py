@@ -23,7 +23,6 @@ held to finite differences here.
 """
 
 import json
-import time
 from pathlib import Path
 
 import jax
@@ -32,8 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu import cpu_backend
 from feos_tpu.models import gc_pcsaft as jgc
 from feos_tpu_torch.models import gc_pcsaft as gc
 
@@ -287,17 +286,6 @@ def test_derivatives_golden(j, key, atol):
     with torch.no_grad():
         out = golden_eos().derivatives(*_golden_state())
     np.testing.assert_allclose(out[j].numpy(), GOLDEN[key], rtol=0, atol=atol)
-
-
-@pytest.fixture(scope="module")
-def backend():
-    """``cpu_backend`` once its library loads (another test process may be
-    building it: retry a few times, 2 s apart)."""
-    for _ in range(10):
-        if cpu_backend.available():
-            break
-        time.sleep(2.0)
-    return cpu_backend
 
 
 def test_derivatives_match_cpp_oracle(backend):

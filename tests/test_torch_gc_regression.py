@@ -11,8 +11,8 @@ step to step.  No JAX function is compiled here.
 import numpy as np
 import torch
 
+from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from test_torch_gc_eos import backend  # noqa: F401
 
 IDENT = ["A", "B"]
 PARAMETER = (np.array([1.0, 1.0]), np.array([3.5, 3.5]), np.array([150.0, 200.0]),

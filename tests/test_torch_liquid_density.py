@@ -8,7 +8,6 @@ finite differences; the reference's 6-row grid against the C++ oracle.  The
 JAX side runs once, in one jitted function of one fixed shape.
 """
 
-import time
 
 import jax
 import jax.numpy as jnp
@@ -16,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu import cpu_backend
 from feos_tpu.models import pcsaft_pure as jpure
 from feos_tpu.solvers.vle import npt_density as jax_npt_density
 from feos_tpu.units import KMOL_M3_TO_REDUCED, PA_PER_KT_TO_REDUCED
@@ -238,18 +237,6 @@ def test_gradients_central_fd(kind):
     for i in range(6):
         fd_i = (rho[1 + 2 * i] - rho[2 + 2 * i]) / (2 * row[i] * h)
         assert abs((fd_i - grad[i]) / grad[i]) < 1e-4, (i, fd_i, grad[i])
-
-
-@pytest.fixture(scope="module")
-def backend():
-    """``cpu_backend`` once its library loads.  Another test process may be
-    building ``csrc/libfeos_cpu.so`` at the same moment, and a load that
-    finds the file half written fails: retry a few times, 2 s apart."""
-    for _ in range(10):
-        if cpu_backend.available():
-            break
-        time.sleep(2.0)
-    return cpu_backend
 
 
 def test_reference_grid_vs_cpp_oracle(backend):

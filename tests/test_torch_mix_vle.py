@@ -10,14 +10,13 @@ of component 0, kij and eps_AiBj are held to central differences, the
 bubble pressure's at the bars of ``tests/test_pcsaft_mix.py``.
 """
 
-import time
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu import cpu_backend
 from feos_tpu_torch.models import pcsaft_mix as mix
 from feos_tpu_torch.units import PA_PER_KT_TO_REDUCED
 
@@ -42,18 +41,6 @@ ORACLE_FAILS = {"bubble": {15: (184008.716, 141399.49)}, "dew": {}}
 
 def _t(x):
     return torch.as_tensor(np.asarray(x, dtype=np.float64))
-
-
-@pytest.fixture(scope="module")
-def backend():
-    """``cpu_backend`` once its library loads.  Another test process may be
-    building ``csrc/libfeos_cpu.so`` at the same moment, and a load that
-    finds the file half written fails: retry a few times, 2 s apart."""
-    for _ in range(10):
-        if cpu_backend.available():
-            break
-        time.sleep(2.0)
-    return cpu_backend
 
 
 def _systems(seed=11):

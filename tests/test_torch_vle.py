@@ -6,7 +6,6 @@ grid, the README rows and supercritical rows) goes through the port's
 one jit, and through the independent C++ oracle.
 """
 
-import time
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu import cpu_backend
 from feos_tpu.models.pcsaft_pure import PureParams as JaxParams
 from feos_tpu.solvers.vle import pure_vle as jax_pure_vle
 from feos_tpu_torch.solvers import vle
@@ -51,18 +50,6 @@ def _inputs():
         [t for _, t in SUPERCRITICAL],
     ])
     return params, temperature
-
-
-@pytest.fixture(scope="module")
-def backend():
-    """``cpu_backend`` once its library loads.  Another test process may be
-    building ``csrc/libfeos_cpu.so`` at the same moment, and a load that
-    finds the file half written fails: retry a few times, 2 s apart."""
-    for _ in range(10):
-        if cpu_backend.available():
-            break
-        time.sleep(2.0)
-    return cpu_backend
 
 
 @pytest.fixture(scope="module")
