@@ -32,7 +32,14 @@ the implicit-function identity and 512 rows on the CPU; three
 ``fit_binary`` steps; p-x-y and T-x-y diagrams with the closure of their
 dew curves; and the residual properties of config 3's and config 4's
 100,000 coexisting phases, with isofugacity and 2,000 rows on the CPU.
-Every phase raises on failure.
+Phase 15 drives the isothermal pT flash, torch ops only: config 6 of
+``benchmarks/run_all.py`` (config 3's pair at the log-midpoint of its
+bubble and dew pressures) at 4,096 and 100,000 rows, timed as run_all.py
+times it, with material balance, isobaric closure and isofugacity through
+``mix_properties`` and 512 rows on the CPU; the same with gradients at
+4,096 rows, held to the phase rule (dbeta/dz1 = 1/(y1 - x1), dx/dz1 = 0)
+and to the CPU; gc config 4 at 4,096 rows without and with gradients; and
+the profile of the 100,000-row call.  Every phase raises on failure.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -60,15 +67,16 @@ import torch
 from feos_tpu_torch import (
     GcPcSaftMix, PureParams, ResidualProperties, binary_pxy, binary_txy, boiling_temperature,
     bubble_point, bubble_point_t, critical_point, dew_point, dew_point_t,
-    equilibrium_liquid_density, fit_binary, fit_gc, fit_pure, gc_binary_pxy, gc_binary_txy,
-    gc_helmholtz_energy_density, gc_properties, liquid_density, make_batch, mix_derivatives,
-    mix_helmholtz_energy_density, mix_properties, precompute_pure, pure_derivatives,
-    pure_properties, pure_vle, vapor_pressure,
+    equilibrium_liquid_density, fit_binary, fit_gc, fit_pure, flash, gc_binary_pxy,
+    gc_binary_txy, gc_helmholtz_energy_density, gc_properties, liquid_density, make_batch,
+    mix_derivatives, mix_helmholtz_energy_density, mix_properties, precompute_pure,
+    pure_derivatives, pure_properties, pure_vle, vapor_pressure,
 )
 from feos_tpu_torch.kernels import build
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
 from feos_tpu_torch.ops.derivatives import state_derivatives
 from feos_tpu_torch.solvers.vle import _ETA_GRID
+from feos_tpu_torch.utils import masked_sum
 from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, REDUCED_TO_PA_PER_KT, RGAS
 
 ROOT = Path(__file__).resolve().parent
@@ -166,6 +174,18 @@ N_CPU_T = 512
 FIT_BINARY_ROWS = 4_096
 FIT_BINARY_STEPS = 3
 DIAGRAM_POINTS = 51
+# phase 15: the isothermal pT flash.  Config 6 of benchmarks/run_all.py
+# (config 3's pair at p = sqrt(p_bubble p_dew) of the port's own solves) at
+# run_all.py's default 4,096 rows and at 100,000, with gradients at 4,096,
+# and gc config 4 at its mid-window pressures; the C++ oracle splits every
+# row of both (cpu_backend.mix_flash / gc_flash at the oracle's own
+# mid-window pressures: tools/count_flash_ops.py --oracle);
+# tests/test_flash.py's consistency bars, with its f64 floor of the liquid p~
+FLASH_SIZES = (4_096, 100_000)
+FLASH_REPS = 3
+FLASH_GRAD_ROWS = 4_096
+N_CPU_FLASH = 512
+FLASH_P_NOISE = 2e-14
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -792,7 +812,7 @@ def mixture_case(label, fn, system, kij, temperature, dev, anchor=None):
     return record
 
 
-def profile(phase, label, fn, record):
+def profile(phase, label, fn, record, what="solve + backward"):
     """Where the time of one call of ``fn`` goes: the card's busy time
     (:func:`device_profile`) against the path's unprofiled median, added to
     its ``record``."""
@@ -801,7 +821,7 @@ def profile(phase, label, fn, record):
     record["profile_s"] = time.perf_counter() - t0
     step = record["ms"]
     idle = f"idle share {1.0 - busy / step:.3f}" if kernels else "busy time not measured"
-    print(f"phase {phase} profile of {label} (solve + backward): card busy {busy:.1f} ms in "
+    print(f"phase {phase} profile of {label} ({what}): card busy {busy:.1f} ms in "
           f"{kernels} kernels, {host_ops} aten ops on the host; {idle} of the unprofiled "
           f"median {step:.1f} ms; the profile took {record['profile_s']:.1f} s")
     record.update(busy_ms=busy if kernels else None, kernels=kernels, host_ops=host_ops)
@@ -1381,6 +1401,233 @@ def properties_phase(mix_states, gc_states):
     return paths
 
 
+def config6(rows, dev):
+    """Config 6 of benchmarks/run_all.py on ``rows`` rows: ``(params, kij, T,
+    x1, p)`` with p the log-midpoint of the port's own bubble and dew
+    pressures."""
+    params = f64(np.tile(CONFIG3, (rows, 1, 1)), dev)
+    kij = f64(np.tile(CONFIG3_KIJ, (rows, 1)), dev)
+    temperature = f64(np.linspace(140.0, 160.0, rows), dev)
+    x1 = f64(np.full(rows, 0.5), dev)
+    p0 = f64(np.full(rows, 1e5), dev)
+    with torch.no_grad():
+        p_bub, nb = bubble_point(params, kij, temperature, x1, p0)
+        p_dew, nd = dew_point(params, kij, temperature, x1, p0)
+    check(not bool((nb | nd).any()), f"config 6 edges at B={rows}")
+    return params, kij, temperature, x1, torch.sqrt(p_bub * p_dew)
+
+
+def gc_config4_flash(rows, dev):
+    """Config 4 on ``rows`` rows with its mid-window pressures: ``(system,
+    model on dev, T, x1, p)``."""
+    system = GcSystem(rows)
+    model = system.model(dev)
+    temperature = f64(np.linspace(140.0, 160.0, rows), dev)
+    x1 = f64(np.full(rows, 0.5), dev)
+    p0 = f64(np.full(rows, 1e5), dev)
+    with torch.no_grad():
+        p_bub, nb = model.bubble_point(temperature, x1, p0)
+        p_dew, nd = model.dew_point(temperature, x1, p0)
+    check(not bool((nb | nd).any()), f"gc config 4 edges at B={rows}")
+    return system, model, temperature, x1, torch.sqrt(p_bub * p_dew)
+
+
+def flash_rates(label, run, rows, p):
+    """Phase 15(a, c): a flash path's first call with its loop counts, then
+    the median of FLASH_REPS synchronised calls, each at p varied by 1e-9
+    relative (as run_all.py::config6 does); ``run(p, stats=None)`` returns
+    the flash's outputs.  Checks that no call launched phi_d2 and that every
+    row split in two phases, as the C++ oracle splits them.  Returns the
+    first call's outputs and the path's record."""
+    stats = {}
+    out, sec, launches, _ = on_card(lambda: run(p, stats=stats))
+    times = []
+    for rep in range(FLASH_REPS):
+        _, t, n, _ = on_card(lambda: run(p * (1.0 + 1e-9 * (rep + 1))))
+        times.append(t)
+        launches += n
+    step = statistics.median(times)
+    n_two = int((out[4] == 2).sum())
+    print(f"phase 15 {label}: two-phase {n_two} of {rows}, first call {sec * 1e3:.1f} ms, "
+          f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
+          f"({n_two / step:.1f} splits/s), loops {stats}, phi_d2 launches {launches}")
+    check(launches == 0, f"{label}: the path launched phi_d2")
+    check(n_two == rows, f"{label}: {n_two} of {rows} rows split (the oracle splits all)")
+    return out, {"launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+                 "two_phase": n_two, "rows": rows, "loops": stats}
+
+
+@torch.no_grad()
+def flash_consistency(label, properties, temperature, x1, p, out):
+    """tests/test_flash.py's checks on every row: material balance within
+    1e-9 and, through the model's residual properties ``properties(T,
+    rho)``, the liquid's p within 1e-8 plus its p~ floor, the vapor's within
+    1e-8, and isofugacity within 1e-7 plus the floor's share of p."""
+    beta, x, y, rho, _ = out
+    z = torch.stack([x1, 1.0 - x1], 1)
+    balance = float((beta[:, None] * y + (1.0 - beta[:, None]) * x - z).abs().max())
+    props_l = properties(temperature, x * rho[:, :1])
+    props_v = properties(temperature, y * rho[:, 1:])
+    noise = FLASH_P_NOISE * temperature * REDUCED_TO_PA_PER_KT
+    p_l = float(((props_l.pressure - p).abs() / (1e-8 * p + noise)).max())
+    p_v = float(((props_v.pressure - p).abs() / (1e-8 * p)).max())
+    f_l = x * torch.exp(props_l.ln_phi)
+    f_v = y * torch.exp(props_v.ln_phi)
+    fug = float(((f_l - f_v).abs() / ((1e-7 + noise / p)[:, None] * f_v.abs())).max())
+    print(f"  {label}: max |beta y + (1 - beta) x - z| {balance:.3e} (bound 1e-9); max err / "
+          f"allowed: liquid p {p_l:.3e}, vapor p {p_v:.3e}, isofugacity {fug:.3e}")
+    check(balance <= 1e-9 and max(p_l, p_v, fug) <= 1.0, f"{label}: flash consistency")
+
+
+def flash_agree(label, card, on_cpu):
+    """The card's flash against the CPU's on the same rows: equal phase
+    codes, beta, x and y within 1e-10, rho within rtol 1e-10."""
+    n = len(on_cpu[4])
+    card = [o[:n].cpu() for o in card]
+    check(torch.equal(card[4], on_cpu[4]), f"{label}: card and CPU phase codes differ")
+    for name, i, rtol, floor in (("beta", 0, 0.0, 1e-10), ("x", 1, 0.0, 1e-10),
+                                 ("y", 2, 0.0, 1e-10), ("rho", 3, 1e-10, None)):
+        got, want = card[i].flatten(), on_cpu[i].flatten()
+        no = torch.zeros(got.shape, dtype=torch.bool)
+        agree(f"{label} {name}", no, got, no, want, rtol, floor)
+
+
+def flash_grad_run(flash_fn, leaves, x1):
+    """``flash_fn()``, a flash with ``gradients=True``, and the backward of
+    sum beta + sum x1 + sum ln rho_L over the two-phase rows into ``leaves``
+    (tensors that require a gradient, the feed ``x1`` among them).  Returns the outputs,
+    the gradients, and d(sum beta)/dx1 and d(sum x1 + y1 + ln rho_L + ln
+    rho_V)/dx1 (by the phase rule, the lever rule 1/(y1 - x1) and 0)."""
+    beta, x, y, rho, phase = flash_fn()
+    failed = phase != 2
+    (lever,) = torch.autograd.grad(masked_sum(beta, failed), x1, retain_graph=True)
+    rest = masked_sum(x[:, 0] + y[:, 0] + torch.log(rho).sum(-1), failed)
+    (zero,) = torch.autograd.grad(rest, x1, retain_graph=True)
+    masked_sum(beta + x[:, 0] + torch.log(rho[:, 0]), failed).backward()
+    out = tuple(o.detach() for o in (beta, x, y, rho, phase))
+    return out, [g.grad for g in leaves], (lever, zero)
+
+
+def timed_flash_grad(label, run, rows, out):
+    """Phase 15(b, c): one call of ``run()`` (:func:`flash_grad_run`) on the
+    card.  Checks that it launched no phi_d2, split every row, gave finite
+    gradients and the outputs ``out`` of the call without gradients bit for
+    bit, and held the phase rule.  Returns its outputs, its gradients and
+    the path's record."""
+    (out_g, grads, anchors), sec, launches, _ = on_card(run)
+    n_two = int((out_g[4] == 2).sum())
+    print(f"phase 15 {label}: two-phase {n_two} of {rows}, one call with backward "
+          f"{sec * 1e3:.1f} ms ({n_two / sec:.1f} splits+gradients/s), phi_d2 launches "
+          f"{launches}")
+    check(launches == 0 and n_two == rows, f"{label}: launches or split rows")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
+    for a, b in zip(out_g, out):
+        check(torch.equal(a, b), f"{label}: gradients=True changed an output")
+    phase_rule(label, out_g, anchors)
+    return out_g, grads, {"launches": launches, "by_k": {}, "ms": sec * 1e3,
+                          "two_phase": n_two, "rows": rows}
+
+
+def phase_rule(label, out, anchors):
+    """dbeta/dz1 = 1/(y1 - x1) within 1e-6 and d{x, y, rho}/dz1 = 0 within
+    1e-6 on every row."""
+    _, x, y, _, _ = out
+    lever, zero = anchors
+    rel = float((lever * (y[:, 0] - x[:, 0]) - 1.0).abs().max())
+    worst = float(zero.abs().max())
+    print(f"  {label}: max |dbeta/dz1 (y1 - x1) - 1| {rel:.3e}, max |d(x1 + y1 + ln rho)/dz1| "
+          f"{worst:.3e} (bounds 1e-6)")
+    check(rel <= 1e-6 and worst <= 1e-6, f"{label}: phase-rule anchors")
+
+
+def mix_flash_grad(params, kij, temperature, x1, p):
+    leaves = [a.detach().requires_grad_() for a in (params, kij, temperature, x1, p)]
+    pa, ka, ta, za, pp = leaves
+    return flash_grad_run(lambda: flash(pa, ka, ta, za, pp, gradients=True), leaves, za)
+
+
+def gc_flash_grad(model, temperature, x1, p):
+    model.zero_grad(set_to_none=True)
+    za, pp = x1.detach().requires_grad_(), p.detach().requires_grad_()
+    leaves = [model.parameter, model.kab, model.phi, za, pp]
+    return flash_grad_run(lambda: model.flash(temperature, za, pp, gradients=True), leaves, za)
+
+
+def mixture_flash(dev):
+    """Phase 15(a, b, d): config 6 at FLASH_SIZES without gradients (first
+    call, median, consistency, 512 rows on the CPU), with gradients at
+    FLASH_GRAD_ROWS (anchors, 512 rows on the CPU), and the profile of the
+    largest call."""
+    paths, times = {}, {}
+    for rows in FLASH_SIZES:
+        t0 = time.perf_counter()
+        params, kij, temperature, x1, p = config6(rows, dev)
+        label = f"config 6 flash B={rows}"
+
+        def run(pv, stats=None):
+            with torch.no_grad():
+                return flash(params, kij, temperature, x1, pv, stats=stats)
+
+        out, paths[label] = flash_rates(label, run, rows, p)
+        flash_consistency(label, partial(mix_properties, params, kij), temperature, x1, p, out)
+        n = N_CPU_FLASH
+        with torch.no_grad():
+            on_cpu = flash(*(a[:n].cpu() for a in (params, kij, temperature, x1, p)))
+        flash_agree(label, out, on_cpu)
+        times[f"(a) B={rows}"] = time.perf_counter() - t0
+
+        if rows == FLASH_GRAD_ROWS:
+            t0 = time.perf_counter()
+            label = f"config 6 flash with gradients B={rows}"
+            args = (params, kij, temperature, x1, p)
+            out_g, grads, paths[label] = timed_flash_grad(
+                label, lambda: mix_flash_grad(*args), rows, out)
+            c_out, c_grads, _ = mix_flash_grad(*(a[:n].cpu() for a in args))
+            flash_agree(label, out_g, c_out)
+            agree_gradients(label, ("params", "kij", "T", "x1", "p"),
+                            (g[:n] for g in grads), c_grads)
+            times["(b)"] = time.perf_counter() - t0
+        if rows == FLASH_SIZES[-1]:
+            t0 = time.perf_counter()
+            profile(15, f"config 6 flash B={rows}", lambda: run(p),
+                    paths[f"config 6 flash B={rows}"], what="no gradient")
+            times["(d)"] = time.perf_counter() - t0
+    return paths, times
+
+
+def gc_flash_phase(dev):
+    """Phase 15(c): gc config 4 at FLASH_GRAD_ROWS, without gradients (first
+    call, median, consistency) and with them (anchors), each with its first
+    N_CPU_FLASH rows on the card and on the CPU."""
+    rows, n = FLASH_GRAD_ROWS, N_CPU_FLASH
+    system, model, temperature, x1, p = gc_config4_flash(rows, dev)
+    label = f"gc config 4 flash B={rows}"
+
+    def run(pv, stats=None):
+        with torch.no_grad():
+            return model.flash(temperature, x1, pv, stats=stats)
+
+    paths = {}
+    out, paths[label] = flash_rates(label, run, rows, p)
+    g = model.params.detach()
+    flash_consistency(label, partial(gc_properties, g), temperature, x1, p, out)
+    cpu_model = system.model("cpu", n)
+    cpu_args = [a[:n].cpu() for a in (temperature, x1, p)]
+    with torch.no_grad():
+        flash_agree(label, out, cpu_model.flash(*cpu_args))
+
+    label = f"gc config 4 flash with gradients B={rows}"
+    _, _, paths[label] = timed_flash_grad(
+        label, lambda: gc_flash_grad(model, temperature, x1, p), rows, out)
+    # the segment gradients are shared by the rows: the same N rows on both
+    card = gc_flash_grad(system.model(dev, n), *(a[:n] for a in (temperature, x1, p)))
+    on_cpu = gc_flash_grad(cpu_model, *cpu_args)
+    flash_agree(label, card[0], on_cpu[0])
+    agree_gradients(label, ("segment parameters", "k_ab", "phi", "x1", "p"), card[1],
+                    on_cpu[1])
+    return paths
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1446,6 +1693,17 @@ def main():
     done = time.perf_counter()
     print(f"phase 14: {done - t14:.1f} s: (a) {t14b - t14:.1f}, (b) {t14c - t14b:.1f}, "
           f"(c) {t14d - t14c:.1f}, (d) {t14e - t14d:.1f}, (e) {done - t14e:.1f}")
+
+    # phase 15: the isothermal pT flash (torch ops: no phi_d2 launch)
+    t15 = time.perf_counter()
+    flash_paths, times = mixture_flash(dev)
+    paths.update(flash_paths)
+    t15c = time.perf_counter()
+    paths.update(gc_flash_phase(dev))
+    done = time.perf_counter()
+    times["(c)"] = done - t15c
+    print(f"phase 15: {done - t15:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(times.items())))
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main")
 
     shapes = kernel["shapes"]

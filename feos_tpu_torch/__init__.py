@@ -8,9 +8,10 @@ the parameter fit built on them.  Binary mixtures: the Helmholtz energy
 with its association fixed points and derivative set (A, p~, mu, v), and
 batched bubble and dew pressures and temperatures with gradients with
 respect to the parameters, kij and epsilon_k_AiBj, residual properties,
-p-x-y and T-x-y diagrams, and the kij fit.  Heterosegmented
-(group-contribution) binaries: the same, with gradients in the segment
-parameters, k_ab and phi, and the k_ab fit.
+p-x-y and T-x-y diagrams, the kij fit, and the isothermal pT flash with
+implicit-function gradients.  Heterosegmented (group-contribution)
+binaries: the same, with gradients in the segment parameters, k_ab and
+phi, and the k_ab fit.
 
 * :class:`PcSaftPure` -- ``nn.Module`` facade holding ``(B, 8)`` parameters;
 * :func:`vapor_pressure`, :func:`liquid_density`,
@@ -35,6 +36,12 @@ parameters, k_ab and phi, and the k_ab fit.
 * :func:`binary_loss`, :func:`fit_binary` -- kij (and epsilon_k_AiBj)
   regression on bubble pressures; :func:`fit_gc` -- k_ab regression on gc
   bubble pressures; both warm-started from step to step;
+* :func:`flash`, :func:`gc_flash` (and the facades' ``flash``) --
+  isothermal pT flash, ``(vapor_frac, x, y, rho, phase)``, with
+  ``gradients=True`` for implicit-function derivatives; :func:`flash_tp`
+  -- its detached batched core;
+* :mod:`feos_tpu_torch.utils` -- ``compact``, ``masked_mean``,
+  ``masked_sum`` over the solvers' failure masks;
 * :func:`binary_pxy`, :func:`binary_txy`, :func:`gc_binary_pxy`,
   :func:`gc_binary_txy` -- phase diagrams (:class:`BinaryPxy`,
   :class:`BinaryTxy`);
@@ -49,7 +56,7 @@ unless the caller asks for the CPU.  The package imports neither jax nor
 ``feos_tpu``.
 """
 
-from . import units
+from . import units, utils
 from .data import make_batch
 from .diagrams import (
     BinaryPxy, BinaryTxy, binary_pxy, binary_txy, gc_binary_pxy, gc_binary_txy,
@@ -62,6 +69,7 @@ from .models.gc_pcsaft import (
     gc_bubble_point,
     gc_derivatives,
     gc_dew_point,
+    gc_flash,
     gc_helmholtz_energy_density,
     gc_incipient_temperature,
     precompute_gc,
@@ -73,6 +81,7 @@ from .models.pcsaft_mix import (
     bubble_point_t,
     dew_point,
     dew_point_t,
+    flash,
     precompute_mix,
 )
 from .models.pcsaft_mix import derivatives as mix_derivatives
@@ -95,6 +104,7 @@ from .properties import ResidualProperties, gc_properties, mix_properties, pure_
 from .regression import (
     FitResult, binary_loss, fit_binary, fit_gc, fit_pure, masked_relative_sse, pure_loss,
 )
+from .solvers.flash import flash_tp
 from .solvers.vle import mix_vle, npt_density, pure_critical, pure_vle
 
 __all__ = [
@@ -123,11 +133,14 @@ __all__ = [
     "fit_binary",
     "fit_gc",
     "fit_pure",
+    "flash",
+    "flash_tp",
     "gc_binary_pxy",
     "gc_binary_txy",
     "gc_bubble_point",
     "gc_derivatives",
     "gc_dew_point",
+    "gc_flash",
     "gc_helmholtz_energy_density",
     "gc_incipient_temperature",
     "gc_properties",
@@ -151,5 +164,6 @@ __all__ = [
     "pure_properties",
     "pure_vle",
     "units",
+    "utils",
     "vapor_pressure",
 ]

@@ -17,7 +17,8 @@ inputs.
   sanitisation of masked rows, and selected per row with ``torch.where``.
 * Bubble and dew points run the detached f64 solver and re-attach the
   gradient through the stationary identity shared with the mixture model
-  (:func:`feos_tpu_torch.models.pcsaft_mix.reattach_incipient`).
+  (:func:`feos_tpu_torch.models.pcsaft_mix.reattach_incipient`); the
+  flash (:func:`gc_flash`) is the mixture model's over the gc phi.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch import nn
 from ..constants import A0, A1, A2, B0, B1, B2
 from ..ops.association import cross_assoc_sym_iterate, solve_cross_assoc_sym
 from ..ops.derivatives import pressure_set
+from ..solvers.flash import flash_model
 from ..solvers.vle import mix_vle
 from ..units import MU2_FACTOR
 from .common import (
@@ -510,6 +512,29 @@ def gc_incipient_temperature(params: GcParams, pressure, molefracs, t0, bubble=T
         pressure, molefracs, t0, params.m_mix.shape[0], params.m.device, full_output, stats)
 
 
+def gc_flash(params: GcParams, temperature, molefracs, pressure, gradients=False, stats=None):
+    """Batched isothermal pT flash of gc binaries: the contract of
+    :func:`feos_tpu_torch.models.pcsaft_mix.flash`, over the gc phi, with
+    the window from detached gc bubble and dew solves.  With
+    ``gradients=True`` the derivatives of beta, x, y and rho re-attach in
+    whatever ``params`` (the segment parameters, k_ab and phi behind them),
+    T, z and p require."""
+    dev = params.m.device
+    temperature, z, p_red = binary_inputs(dev, temperature, molefracs, pressure)
+    pressure = torch.as_tensor(pressure, dtype=F64, device=dev)
+    g_s, t_s, z_s = params.detach(), temperature.detach(), z.detach()
+    p0 = torch.clamp(pressure.detach(), min=1e5)
+    edges = (gc_incipient_property(g_s, t_s, z_s, p0, True, full_output=True)
+             + gc_incipient_property(g_s, t_s, z_s, p0, False, full_output=True))
+    pre_grad = None
+    if gradients and needs_grad(*params, temperature, z, p_red):
+        pre_grad = precompute_gc(params, temperature)
+    else:
+        z, p_red = z_s, p_red.detach()
+    return flash_model(phi_gc_pre, precompute_gc(g_s, t_s), pre_grad, z, p_red, pressure,
+                       edges, stats)
+
+
 class GcPcSaftMix(nn.Module):
     """Module facade (reference ``GcPcSaftMix``, feos_torch/gc_pcsaft.py:13).
 
@@ -572,6 +597,11 @@ class GcPcSaftMix(nn.Module):
         :func:`gc_incipient_temperature`."""
         return gc_incipient_temperature(self.params, pressure, vapor_molefracs, t0, False,
                                         full_output, stats)
+
+    def flash(self, temperature, molefracs, pressure, gradients=False, stats=None):
+        """Isothermal pT flash; see :func:`gc_flash`."""
+        return gc_flash(self.params, self._tensor(temperature), self._tensor(molefracs),
+                        self._tensor(pressure), gradients, stats)
 
     def residual_properties(self, temperature, density):
         """Residual property set at (T, rho_i [A^-3]); see

@@ -21,6 +21,10 @@ parameters.  Everything is ``torch.float64`` on the device of the inputs.
   (:func:`feos_tpu_torch.solvers.vle.mix_vle`); the pressure's value comes
   from the solver's carried state, and its gradient from the stationary
   mixture identity, so no Newton iteration is ever differentiated.
+* The isothermal pT flash (:func:`flash`) splits a feed inside the window
+  of those bubble and dew solves
+  (:mod:`feos_tpu_torch.solvers.flash`), and re-attaches its gradients by
+  the implicit-function theorem on the equilibrium system.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..ops.association import (
     cross_assoc_iterate, induced_assoc_iterate, solve_cross_assoc, solve_induced_assoc,
 )
 from ..ops.derivatives import pressure_set
+from ..solvers.flash import flash_model
 from ..solvers.vle import mix_vle
 from ..units import MU2_FACTOR, PA_PER_KT_TO_REDUCED, REDUCED_TO_PA_PER_KT
 from .common import (
@@ -578,6 +583,51 @@ def dew_point_t(parameters, kij, pressure, vapor_molefracs, t0, full_output=Fals
                                   full_output, stats)
 
 
+def flash(parameters, kij, temperature, molefracs, pressure, gradients=False, stats=None):
+    """Batched isothermal pT flash at (T, p, z) of binary mixtures.
+
+    ``parameters (B, 2, 8)`` and ``kij (B, 2)`` (or ``None``) are float64
+    tensors on one device; ``temperature`` [K], ``pressure`` [Pa] and
+    ``molefracs`` (the feed: z1 per row, or ``(B, 2)``) follow them.  The
+    two-phase window comes from detached bubble and dew solves at the feed
+    (their initial estimate floored at 1e5 Pa: the edge solvers recover from
+    an estimate too high, not from one decades too low); inside it,
+    successive substitution splits the feed
+    (:func:`feos_tpu_torch.solvers.flash.flash_tp`).
+
+    Returns ``(vapor_frac, x, y, rho, phase)``: beta ``(B,)`` (0 for a
+    liquid, 1 for a vapor, NaN where failed), the liquid and vapor mole
+    fractions ``(B, 2)`` (the feed where single-phase, NaN where that phase
+    does not exist), the total densities ``(B, 2)`` = [liquid, vapor] in
+    A^-3 on two-phase rows (NaN elsewhere; the unit
+    :func:`~feos_tpu_torch.properties.mix_properties` takes), and the int8
+    phase code (0 liquid, 1 vapor, 2 two-phase, -1 failed).
+
+    With ``gradients=False`` every output is detached.  With
+    ``gradients=True`` the derivatives of beta, x, y and rho in the
+    parameters, kij, T, z and p re-attach by the implicit-function theorem
+    (:func:`feos_tpu_torch.solvers.flash.reattach_flash`), values unchanged.
+    The z-gradient is the JAX package's: the residual holds the material
+    balance of every component but the last, so z_n enters no equation and
+    a scalar z1 feed carries dz through z_1 alone.  If ``stats`` is a dict,
+    it receives the flash's loop iterations.
+    """
+    temperature, z, p_red = binary_inputs(parameters.device, temperature, molefracs, pressure)
+    pressure = torch.as_tensor(pressure, dtype=F64, device=parameters.device)
+    params_s, t_s, z_s = parameters.detach(), temperature.detach(), z.detach()
+    kij_s = None if kij is None else kij.detach()
+    p0 = torch.clamp(pressure.detach(), min=1e5)
+    edges = (_incipient_property(params_s, kij_s, t_s, z_s, p0, True, full_output=True)
+             + _incipient_property(params_s, kij_s, t_s, z_s, p0, False, full_output=True))
+    pre_grad = None
+    if gradients and needs_grad(parameters, kij, temperature, z, p_red):
+        pre_grad = _pre(parameters, kij, temperature)
+    else:
+        z, p_red = z_s, p_red.detach()
+    return flash_model(phi_mix_pre, _pre(params_s, kij_s, t_s), pre_grad, z, p_red, pressure,
+                       edges, stats)
+
+
 class PcSaftMix(nn.Module):
     """Module facade over the functional API (reference ``PcSaftMix``,
     feos_torch/pcsaft_mix.py:12); binary mixtures only.
@@ -629,6 +679,11 @@ class PcSaftMix(nn.Module):
         """Dew-point temperature at given pressure; see :func:`dew_point_t`."""
         return dew_point_t(self.params, self.kij, self._tensor(pressure),
                            self._tensor(vapor_molefracs), self._tensor(t0), full_output, stats)
+
+    def flash(self, temperature, molefracs, pressure, gradients=False, stats=None):
+        """Isothermal pT flash; see :func:`flash`."""
+        return flash(self.params, self.kij, self._tensor(temperature), self._tensor(molefracs),
+                     self._tensor(pressure), gradients, stats)
 
     def residual_properties(self, temperature, density):
         """Residual property set at (T, rho_i [A^-3]); see
