@@ -32,14 +32,26 @@ the implicit-function identity and 512 rows on the CPU; three
 ``fit_binary`` steps; p-x-y and T-x-y diagrams with the closure of their
 dew curves; and the residual properties of config 3's and config 4's
 100,000 coexisting phases, with isofugacity and 2,000 rows on the CPU.
+Phases 12-15 time each cell as its first call and the median of 2 more.
 Phase 15 drives the isothermal pT flash, torch ops only: config 6 of
 ``benchmarks/run_all.py`` (config 3's pair at the log-midpoint of its
 bubble and dew pressures) at 4,096 and 100,000 rows, timed as run_all.py
 times it, with material balance, isobaric closure and isofugacity through
 ``mix_properties`` and 512 rows on the CPU; the same with gradients at
 4,096 rows, held to the phase rule (dbeta/dz1 = 1/(y1 - x1), dx/dz1 = 0)
-and to the CPU; gc config 4 at 4,096 rows without and with gradients; and
-the profile of the 100,000-row call.  Every phase raises on failure.
+and to the CPU; and gc config 4 at 4,096 rows without and with gradients.
+Phase 16 drives the n-component paths on ternaries, torch ops only: (a)
+the non-associating ternary of ``tests/test_multicomponent.py``, (b) config
+3's cross-associating pair with an inert placed first, held row by row to
+the same solve in the order [A, B, inert], and (c) gc
+butane/propane/pentane, bubble and dew with the gradient of sum ln p at
+4,096 and 100,000 rows (first call, median of 2, 512 rows on the CPU, dew
+below bubble); bubble temperatures, flashes without and with gradients
+(material balance, isofugacity) of (a) and (c) at 4,096 rows and the
+properties of (a)'s 100,000 bubble states; the trace dilution of (a) to
+its binary; a ValueError for three associating components; and the
+profile of (a)'s 100,000-row bubble call.  Every phase raises on failure;
+the seconds of each phase are printed at the end.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -127,7 +139,7 @@ P_NOISE = 1e-14
 # C++ oracle's pressures at T = linspace(140, 160, 4) (config 3) and 150 K,
 # printed to 8 and 2 decimals; rows rerun on the CPU; the golden file's bars
 MIX_SIZES = (4_096, 100_000)
-MIX_REPS = 3
+MIX_REPS = 2
 N_CPU_MIX = 512
 CONFIG3 = [[1, 3.5, 150, 0, 0.02, 1500, 1, 1], [1, 3.5, 200, 0, 0.03, 2500, 1, 1]]
 CONFIG3_KIJ = [-0.15, 1000.0]
@@ -182,10 +194,32 @@ DIAGRAM_POINTS = 51
 # mid-window pressures: tools/count_flash_ops.py --oracle);
 # tests/test_flash.py's consistency bars, with its f64 floor of the liquid p~
 FLASH_SIZES = (4_096, 100_000)
-FLASH_REPS = 3
+FLASH_REPS = 2
 FLASH_GRAD_ROWS = 4_096
 N_CPU_FLASH = 512
 FLASH_P_NOISE = 2e-14
+# phase 16: n-component mixtures.  (a) the non-associating ternary of
+# tests/test_multicomponent.py; (b) config 3's cross-associating pair with an
+# inert placed first, so that the association terms gather the pair from
+# slots 1 and 2; (c) gc butane/propane/pentane with k_ab(CH3, CH2) = 0 (a
+# gradient in it) and phi = 1
+TERNARY = [[1.0, 3.5, 150, 0, 0, 0, 0, 0], [1.6, 3.6, 180, 0, 0, 0, 0, 0],
+           [2.3, 3.7, 222, 0, 0, 0, 0, 0]]
+TERNARY_Z = [0.3, 0.3, 0.4]
+INERT = [1, 3.5, 175, 0, 0, 0, 0, 0]
+CROSS_TERNARY = [INERT] + CONFIG3   # [inert, A, B]
+CROSS_Z = [0.2, 0.4, 0.4]
+JAX_ORDER = [1, 2, 0]               # [A, B, inert]: the pair in slots 0 and 1
+GC_TERNARY_SEGMENTS = [["CH3", "CH2", "CH2", "CH3"], ["CH3", "CH2", "CH3"],
+                       ["CH3", "CH2", "CH2", "CH2", "CH3"]]
+GC_TERNARY_BONDS = [[[0, 1], [1, 2], [2, 3]], [[0, 1], [1, 2]],
+                    [[0, 1], [1, 2], [2, 3], [3, 4]]]
+GC_TERNARY_KAB = [("CH3", "CH2", 0.0)]
+TERNARY_SIZES = (4_096, 100_000)
+TERNARY_ROWS = 4_096                # the further paths of 16(d)
+N_CPU_TERNARY = 512
+TRACE_Z = [0.4 - 5e-9, 0.6 - 5e-9, 1e-8]
+TRACE_RTOL = 1e-7
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -491,21 +525,22 @@ def cpu(*xs):
     return [x[:N_CPU].cpu() for x in xs]
 
 
-def agree(name, nans, card, cpu_nans, cpu_vals, rtol, floor=None):
-    """The card's results against the plain path's on the CPU, all CPU
-    tensors of the same rows: equal masks, and |card - cpu| <= rtol |cpu|
-    (+ a per-row ``floor``) on the converged rows."""
+def agree(name, nans, card, cpu_nans, cpu_vals, rtol, floor=None, ref="CPU"):
+    """The card's results against the plain path's on the CPU (or against
+    the ``ref`` named), all CPU tensors of the same rows: equal masks, and
+    |card - cpu| <= rtol |cpu| (+ a per-row ``floor``) on the converged
+    rows."""
     check(torch.equal(nans, cpu_nans),
-          f"{name}: card and CPU masks differ on {int((nans != cpu_nans).sum())} rows")
+          f"{name}: card and {ref} masks differ on {int((nans != cpu_nans).sum())} rows")
     ok = ~nans
     allow = rtol * cpu_vals.abs() + (0.0 if floor is None else floor)
     err = (card - cpu_vals).abs()
     same = err == 0.0  # exact zeros included
     worst = float(torch.where(same, 0.0, err / allow)[ok].max())
     rel = float(torch.where(same, 0.0, err / cpu_vals.abs())[ok].max())
-    print(f"  card vs CPU {name}, {len(nans)} values: masks equal, max rel err {rel:.3e}, "
+    print(f"  card vs {ref} {name}, {len(nans)} values: masks equal, max rel err {rel:.3e}, "
           f"max err / allowed {worst:.3e} (rtol {rtol:g})")
-    check(worst <= 1.0, f"{name}: card and CPU differ beyond rtol {rtol:g}")
+    check(worst <= 1.0, f"{name}: card and {ref} differ beyond rtol {rtol:g}")
 
 
 def liquid_densities(params, temperature, p_sat):
@@ -782,13 +817,13 @@ def timed_solves(phase, label, run, rows):
         "warm_loops": warm_stats}
 
 
-def agree_gradients(label, names, card, on_cpu):
-    """Gradients of the card against the CPU's, at 1e-9 with a floor of
-    1e-12 of the largest."""
+def agree_gradients(label, names, card, on_cpu, ref="CPU"):
+    """Gradients of the card against the CPU's (or ``ref``'s), at 1e-9 with
+    a floor of 1e-12 of the largest."""
     for what, g, c in zip(names, card, on_cpu):
         g, c = g.cpu().flatten(), c.flatten()
         no = torch.zeros(g.shape, dtype=torch.bool)
-        agree(f"{label} d/d{what}", no, g, no, c, 1e-9, 1e-12 * float(c.abs().max()))
+        agree(f"{label} d/d{what}", no, g, no, c, 1e-9, 1e-12 * float(c.abs().max()), ref)
 
 
 def mixture_case(label, fn, system, kij, temperature, dev, anchor=None):
@@ -988,7 +1023,7 @@ def gc_anchors(label, name, system, temperature, x1, dev, anchors):
 
 def gc_mixtures(dev):
     """Phase 13(b-d): config 4 and the golden topologies, bubble and dew,
-    with gradients; the profile of the largest bubble call; fit_gc."""
+    with gradients; fit_gc."""
     paths, p_config4 = {}, None
     for name in ("bubble", "dew"):
         gc_anchors(f"config 4 {name}", name, GcSystem(4), np.linspace(140.0, 160.0, 4),
@@ -1000,12 +1035,6 @@ def gc_mixtures(dev):
             paths[label], p = gc_case(label, name, GcSystem(rows), temperature, x1, dev)
             if rows == GC_ROWS and name == "bubble":
                 p_config4 = p
-    rows = GC_SIZES[-1]
-    model = GcSystem(rows).model(dev)
-    args = (f64(np.linspace(140.0, 160.0, rows), dev), f64(np.full(rows, 0.5), dev),
-            f64(np.full(rows, 1e5), dev))
-    label = f"gc config 4 bubble B={rows}"
-    profile(13, label, lambda: gc_run(model, "bubble", *args), paths[label])
 
     # every association regime: the golden topologies at 300 K, x1 = 0.4
     golden = GcSystem(GC_ROWS, golden=True)
@@ -1059,8 +1088,8 @@ def temperature_run(fn, params, kij, pressure, x1, t0, stats=None):
     return nans, t.detach(), [p.grad, k.grad]
 
 
-def timed_calls(label, run, rows):
-    """Phase 14: a path's first call with its loop counts (``stats``), then
+def timed_calls(phase, label, run, rows):
+    """Phases 14 and 16: a path's first call with its loop counts (``stats``), then
     the median of MIX_REPS synchronised calls, each with the phi_d2 launches
     it made; ``run(stats=None)`` returns ``(nans, values, gradients)``.
     Checks that no call launched phi_d2, that every row converged and that
@@ -1075,7 +1104,7 @@ def timed_calls(label, run, rows):
         times.append(t)
         launches += n
     step = statistics.median(times)
-    print(f"phase 14 {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
+    print(f"phase {phase} {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
           f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
           f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, phi_d2 "
           f"launches {launches}")
@@ -1140,7 +1169,7 @@ def mixture_temperatures(dev):
             check(not bool(nans.any()), f"config 3 {name} pressures at B={rows}")
             label = f"config 3 {name} T B={rows}"
             run = partial(temperature_run, fn_t, params, kij, target, x1, 1.05 * temperature)
-            (nans, t, grads), paths[label] = timed_calls(label, run, rows)
+            (nans, t, grads), paths[label] = timed_calls(14, label, run, rows)
             recovers(label, t, temperature)
             implicit_function(label, fn_p, params, kij, t, x1, target, state, grads)
             c0 = time.perf_counter()
@@ -1152,7 +1181,6 @@ def mixture_temperatures(dev):
                 data = target
             if name == "bubble" and rows == T_SIZES[-1]:
                 states = (params, kij, temperature, x1, state)
-                profile(14, label, run, paths[label])
     return paths, data, states
 
 
@@ -1194,7 +1222,7 @@ def gc_temperatures(dev):
             label = f"gc config 4 {name} T B={rows}"
             args = (target, x1, 1.05 * temperature)
             (nans, t, _), paths[label] = timed_calls(
-                label, partial(gc_temperature_run, model, name, *args), rows)
+                14, label, partial(gc_temperature_run, model, name, *args), rows)
             recovers(label, t, temperature)
             n = N_CPU_T
             c0 = time.perf_counter()
@@ -1207,8 +1235,6 @@ def gc_temperatures(dev):
             agree_gradients(label, ("segment parameters", "k_ab", "phi"), card[2], on_cpu[2])
             if name == "bubble" and rows == T_SIZES[-1]:
                 states = (model, temperature, x1, state)
-                profile(14, label, partial(gc_temperature_run, model, name, *args),
-                        paths[label])
 
     golden = GcSystem(N_CPU_T, golden=True)
     idx = np.arange(N_CPU_T) % len(GC_ASSOC_ANCHORS["bubble"])
@@ -1339,18 +1365,19 @@ def ray_stiffness(helmholtz, temperature, rho):
 
 
 @torch.no_grad()
-def property_case(label, properties, helmholtz, properties_cpu, temperature, z, state):
-    """Phase 14(e), one model: the property set at its converged bubble
+def property_case(phase, label, properties, helmholtz, properties_cpu, temperature, z, state):
+    """Phases 14(e) and 16(d), one model: the property set at its converged bubble
     states, liquid and vapor; isofugacity across the phases within 1e-8
     plus the liquid p~'s f64 floor; the first N_CPU rows of each phase
     against the CPU at 1e-10 plus the same floors.  ``properties(T, rho)``
     and ``helmholtz(T, rho)`` are the model's on the card,
     ``properties_cpu(T, rho)`` its first N_CPU rows' on the CPU."""
-    rows = len(temperature)
-    phases = {"liquid": z * torch.exp(state[:, 2:3]), "vapor": torch.exp(state[:, :2])}
+    rows, n = z.shape
+    phases = {"liquid": z * torch.exp(state[:, n:]), "vapor": torch.exp(state[:, :n])}
     out, sec, launches, _ = on_card(
         lambda: {name: properties(temperature, rho) for name, rho in phases.items()})
-    path = report(14, f"{label} (liquid and vapor)", torch.zeros(2 * rows, dtype=torch.bool),
+    path = report(phase, f"{label} (liquid and vapor)",
+                  torch.zeros(2 * rows, dtype=torch.bool),
                   sec, launches, {})
     check(launches == 0, f"{label}: launched phi_d2")
     floors = {name: property_floors(out[name], temperature, rho,
@@ -1388,14 +1415,14 @@ def properties_phase(mix_states, gc_states):
     z = torch.stack([x1, 1.0 - x1], 1)
     n = N_CPU
     paths = {"mix_properties": property_case(
-        "mix_properties config 3", partial(mix_properties, params, kij),
+        14, "mix_properties config 3", partial(mix_properties, params, kij),
         partial(mix_helmholtz_energy_density, params, kij),
         partial(mix_properties, params[:n].cpu(), kij[:n].cpu()), temperature, z, state)}
     model, temperature, x1, state = gc_states
     g = model.params.detach()
     g_cpu = GcSystem(n).model("cpu", n).params.detach()
     paths["gc_properties"] = property_case(
-        "gc_properties config 4", partial(gc_properties, g),
+        14, "gc_properties config 4", partial(gc_properties, g),
         partial(gc_helmholtz_energy_density, g), partial(gc_properties, g_cpu), temperature,
         torch.stack([x1, 1.0 - x1], 1), state)
     return paths
@@ -1458,13 +1485,12 @@ def flash_rates(label, run, rows, p):
 
 
 @torch.no_grad()
-def flash_consistency(label, properties, temperature, x1, p, out):
-    """tests/test_flash.py's checks on every row: material balance within
+def flash_consistency(label, properties, temperature, z, p, out):
+    """tests/test_flash.py's checks on every row, feed ``z (B, n)``: material balance within
     1e-9 and, through the model's residual properties ``properties(T,
     rho)``, the liquid's p within 1e-8 plus its p~ floor, the vapor's within
     1e-8, and isofugacity within 1e-7 plus the floor's share of p."""
     beta, x, y, rho, _ = out
-    z = torch.stack([x1, 1.0 - x1], 1)
     balance = float((beta[:, None] * y + (1.0 - beta[:, None]) * x - z).abs().max())
     props_l = properties(temperature, x * rho[:, :1])
     props_v = properties(temperature, y * rho[:, 1:])
@@ -1554,10 +1580,9 @@ def gc_flash_grad(model, temperature, x1, p):
 
 
 def mixture_flash(dev):
-    """Phase 15(a, b, d): config 6 at FLASH_SIZES without gradients (first
-    call, median, consistency, 512 rows on the CPU), with gradients at
-    FLASH_GRAD_ROWS (anchors, 512 rows on the CPU), and the profile of the
-    largest call."""
+    """Phase 15(a, b): config 6 at FLASH_SIZES without gradients (first
+    call, median, consistency, 512 rows on the CPU) and with gradients at
+    FLASH_GRAD_ROWS (anchors, 512 rows on the CPU)."""
     paths, times = {}, {}
     for rows in FLASH_SIZES:
         t0 = time.perf_counter()
@@ -1569,7 +1594,8 @@ def mixture_flash(dev):
                 return flash(params, kij, temperature, x1, pv, stats=stats)
 
         out, paths[label] = flash_rates(label, run, rows, p)
-        flash_consistency(label, partial(mix_properties, params, kij), temperature, x1, p, out)
+        flash_consistency(label, partial(mix_properties, params, kij), temperature,
+                          torch.stack([x1, 1.0 - x1], 1), p, out)
         n = N_CPU_FLASH
         with torch.no_grad():
             on_cpu = flash(*(a[:n].cpu() for a in (params, kij, temperature, x1, p)))
@@ -1587,11 +1613,6 @@ def mixture_flash(dev):
             agree_gradients(label, ("params", "kij", "T", "x1", "p"),
                             (g[:n] for g in grads), c_grads)
             times["(b)"] = time.perf_counter() - t0
-        if rows == FLASH_SIZES[-1]:
-            t0 = time.perf_counter()
-            profile(15, f"config 6 flash B={rows}", lambda: run(p),
-                    paths[f"config 6 flash B={rows}"], what="no gradient")
-            times["(d)"] = time.perf_counter() - t0
     return paths, times
 
 
@@ -1610,7 +1631,8 @@ def gc_flash_phase(dev):
     paths = {}
     out, paths[label] = flash_rates(label, run, rows, p)
     g = model.params.detach()
-    flash_consistency(label, partial(gc_properties, g), temperature, x1, p, out)
+    flash_consistency(label, partial(gc_properties, g), temperature,
+                      torch.stack([x1, 1.0 - x1], 1), p, out)
     cpu_model = system.model("cpu", n)
     cpu_args = [a[:n].cpu() for a in (temperature, x1, p)]
     with torch.no_grad():
@@ -1628,6 +1650,249 @@ def gc_flash_phase(dev):
     return paths
 
 
+class Ternary:
+    """A ternary cell on ``rows`` rows: ``kind`` "mix" (``params`` the (3, 8)
+    components) or "gc" (the gc ternary), feed ``z`` and T =
+    linspace(t_lo, t_hi, rows); ``args(dev, n)`` are its first n rows' inputs
+    on ``dev``, and ``run`` one bubble or dew call with gradients."""
+
+    def __init__(self, kind, rows, z, t_lo, t_hi, params=None):
+        self.kind, self.rows, self.params = kind, rows, params
+        self.z, self.t = z, np.linspace(t_lo, t_hi, rows)
+
+    def model(self, dev, n):
+        ident, parameter = sauer2014()
+        return GcPcSaftMix(ident, parameter, [GC_TERNARY_SEGMENTS] * n,
+                           [GC_TERNARY_BONDS] * n, GC_TERNARY_KAB, None, device=dev)
+
+    def args(self, dev, n=None):
+        n = self.rows if n is None else n
+        head = (self.model(dev, n) if self.kind == "gc"
+                else f64(np.tile(self.params, (n, 1, 1)), dev))
+        return (head, f64(self.t[:n], dev), f64(np.tile(self.z, (n, 1)), dev),
+                f64(np.full(n, 1e5), dev))
+
+
+def ternary_run(name, head, temperature, z, p0, stats=None):
+    """One bubble or dew call of a ternary cell with the gradient of sum ln p
+    over the converged rows: in the parameters (``head`` a (B, 3, 8)
+    tensor), or in the segment parameters, k_ab and phi (``head`` a
+    ``GcPcSaftMix``).  Returns ``(nans, (p, composition, state),
+    gradients)``."""
+    if isinstance(head, GcPcSaftMix):
+        head.zero_grad(set_to_none=True)
+        fn = head.bubble_point if name == "bubble" else head.dew_point
+        p, nans, comp, state = fn(temperature, z, p0, full_output=True, state_output=True,
+                                  stats=stats)
+        leaves = [head.parameter, head.kab, head.phi]
+    else:
+        leaf = head.detach().requires_grad_()
+        fn = bubble_point if name == "bubble" else dew_point
+        p, nans, comp, state = fn(leaf, None, temperature, z, p0, full_output=True,
+                                  state_output=True, stats=stats)
+        leaves = [leaf]
+    log_sum(nans, p).backward()
+    return nans, (p.detach(), comp, state), [x.grad for x in leaves]
+
+
+def ternary_case(label, name, cell, dev):
+    """Phase 16(a-c), one cell: first call and median of MIX_REPS
+    (:func:`timed_calls`), and the first N_CPU_TERNARY rows on the card and
+    on the CPU (equal masks, p and the incipient composition at 1e-10,
+    gradients at 1e-9; the gc gradients are shared by the rows, so both
+    devices run those rows alone).  Returns the first call's output and the
+    cell's record."""
+    run = partial(ternary_run, name, *cell.args(dev))
+    (nans, (p, comp, state), grads), record = timed_calls(16, label, run, cell.rows)
+    n = N_CPU_TERNARY
+    c0 = time.perf_counter()
+    c_nans, (c_p, c_comp, _), c_grads = ternary_run(name, *cell.args("cpu", n))
+    if cell.kind == "gc":
+        _, _, grads = ternary_run(name, *cell.args(dev, n))
+    record["cpu_s"] = time.perf_counter() - c0
+    print(f"  {label}: {n} rows on the CPU {record['cpu_s']:.1f} s")
+    agree(f"{label} p", nans[:n].cpu(), p[:n].cpu(), c_nans, c_p, 1e-10)
+    agree(f"{label} composition", nans[:n].cpu().repeat_interleave(3),
+          comp[:n].cpu().flatten(), c_nans.repeat_interleave(3), c_comp.flatten(), 1e-10)
+    names = ("params",) if cell.kind == "mix" else ("segment parameters", "k_ab", "phi")
+    agree_gradients(label, names, (g if cell.kind == "gc" else g[:n] for g in grads), c_grads)
+    return (nans, p, comp, state, grads), record
+
+
+def slot_order(label, name, cell, dev, out):
+    """Phase 16(b): every row of the [inert, A, B] solve ``out`` against the
+    same rows in the order [A, B, inert] on the card: p and the incipient
+    composition within 1e-10 relative, gradients within 1e-9."""
+    head, temperature, z, p0 = cell.args(dev)
+    nans_j, (p_j, comp_j, _), (g_j,) = ternary_run(
+        name, head[:, JAX_ORDER], temperature, z[:, JAX_ORDER], p0)
+    nans, p, comp, _, (g,) = out
+    back = np.argsort(JAX_ORDER)  # [A, B, inert] -> [inert, A, B]
+    ref = "the card's [inert, A, B] solve:"
+    agree(f"{label} in the order [A, B, inert] p", nans_j.cpu(), p_j.cpu(), nans.cpu(),
+          p.cpu(), 1e-10, ref=ref)
+    agree(f"{label} in the order [A, B, inert] composition",
+          nans_j.cpu().repeat_interleave(3), comp_j[:, back].cpu().flatten(),
+          nans.cpu().repeat_interleave(3), comp.cpu().flatten(), 1e-10, ref=ref)
+    agree_gradients(f"{label} in the order [A, B, inert]", ("params",), (g_j[:, back],),
+                    (g.cpu(),), ref)
+
+
+def ternary_temperature(label, cell, dev, target):
+    """Phase 16(d): the bubble temperature at the cell's own bubble
+    pressures ``target``, from 1.05 T, with the gradient of sum ln T; T
+    recovered within 1e-9."""
+    head, temperature, z, _ = cell.args(dev)
+
+    def run(stats=None):
+        if cell.kind == "gc":
+            head.zero_grad(set_to_none=True)
+            t, nans = head.bubble_point_t(target, z, 1.05 * temperature, stats=stats)
+            leaves = [head.parameter, head.kab, head.phi]
+        else:
+            leaf = head.detach().requires_grad_()
+            t, nans = bubble_point_t(leaf, None, target, z, 1.05 * temperature, stats=stats)
+            leaves = [leaf]
+        log_sum(nans, t).backward()
+        return nans, t.detach(), [x.grad for x in leaves]
+
+    stats = {}
+    (nans, t, grads), sec, launches, _ = on_card(lambda: run(stats))
+    n_ok = int((~nans).sum())
+    print(f"phase 16 {label}: converged {n_ok} of {cell.rows}, one call with backward "
+          f"{sec * 1e3:.1f} ms ({n_ok / sec:.1f} solves+gradients/s), loops {stats}, phi_d2 "
+          f"launches {launches}")
+    check(launches == 0 and n_ok == cell.rows, f"{label}: launches or failed rows")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
+    recovers(label, t, temperature)
+    return {"launches": launches, "by_k": {}, "ms": sec * 1e3, "converged": n_ok,
+            "rows": cell.rows, "loops": stats}
+
+
+def ternary_flash(label, cell, dev, p_bub, p_dew):
+    """Phase 16(d): the flash at sqrt(p_bub p_dew) without gradients (every
+    row splits; material balance and isofugacity as phase 15) and with
+    them (outputs bit-identical, finite gradients of sum beta + sum ln
+    rho_L)."""
+    head, temperature, z, _ = cell.args(dev)
+    p = torch.sqrt(p_bub * p_dew)
+    if cell.kind == "gc":
+        props = partial(gc_properties, head.params.detach())
+
+        def call(gradients=False, stats=None):
+            return head.flash(temperature, z, p, gradients=gradients, stats=stats)
+
+        leaves = [head.parameter, head.kab, head.phi]
+    else:
+        props = partial(mix_properties, head, None)
+        leaf = head.detach().requires_grad_()
+
+        def call(gradients=False, stats=None):
+            return flash(leaf if gradients else head, None, temperature, z, p,
+                         gradients=gradients, stats=stats)
+
+        leaves = [leaf]
+    stats = {}
+    with torch.no_grad():
+        out, sec, launches, _ = on_card(lambda: call(stats=stats))
+    n_two = int((out[4] == 2).sum())
+    print(f"phase 16 {label}: two-phase {n_two} of {cell.rows}, one call {sec * 1e3:.1f} ms "
+          f"({n_two / sec:.1f} splits/s), loops {stats}, phi_d2 launches {launches}")
+    check(launches == 0 and n_two == cell.rows, f"{label}: launches or split rows")
+    flash_consistency(label, props, temperature, z, p, out)
+
+    def grad_run():
+        if cell.kind == "gc":
+            head.zero_grad(set_to_none=True)
+        beta, x, y, rho, phase = call(gradients=True)
+        masked_sum(beta + torch.log(rho[:, 0]), phase != 2).backward()
+        return (beta, x, y, rho, phase), [g.grad for g in leaves]
+
+    (out_g, grads), sec_g, launches_g, _ = on_card(grad_run)
+    print(f"phase 16 {label} with gradients: one call with backward {sec_g * 1e3:.1f} ms "
+          f"({n_two / sec_g:.1f} splits+gradients/s), phi_d2 launches {launches_g}")
+    check(launches_g == 0, f"{label}: launched phi_d2")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
+    for a, b in zip(out_g, out):
+        check(torch.equal(a.detach(), b), f"{label}: gradients=True changed an output")
+    return {"launches": launches + launches_g, "by_k": {}, "ms": sec * 1e3,
+            "grad_ms": sec_g * 1e3, "two_phase": n_two, "rows": cell.rows, "loops": stats}
+
+
+def ternary_anchors(dev):
+    """Phase 16(e): trace dilution of (a) to its binary within TRACE_RTOL,
+    and three associating components raise."""
+    temperature = f64(np.linspace(180.0, 200.0, 4), dev)
+    p0 = f64(np.full(4, 1e5), dev)
+    with torch.no_grad():
+        p3, n3 = bubble_point(f64(np.tile(TERNARY, (4, 1, 1)), dev), None, temperature,
+                              f64(np.tile(TRACE_Z, (4, 1)), dev), p0)
+        p2, n2 = bubble_point(f64(np.tile(TERNARY[:2], (4, 1, 1)), dev), None, temperature,
+                              f64(np.full(4, 0.4), dev), p0)
+    rel = float((p3 / p2 - 1.0).abs().max())
+    print(f"phase 16 trace dilution: ternary with x3 = 1e-8 against the binary at x1 = 0.4, "
+          f"max |p3/p2 - 1| {rel:.3e} (bound {TRACE_RTOL:g}; the JAX package's test 1e-5)")
+    check(not bool((n3 | n2).any()) and rel <= TRACE_RTOL, "trace dilution")
+    three = f64([[CONFIG3[0], CONFIG3[1], CONFIG3[0]]], dev)
+    try:
+        bubble_point(three, None, f64([150.0], dev), f64([[0.3, 0.3, 0.4]], dev),
+                     f64([1e5], dev))
+    except ValueError as e:
+        print(f"phase 16 three associating components raise: {e}")
+    else:
+        check(False, "three associating components did not raise")
+    return rel
+
+
+def ternaries(dev):
+    """Phase 16: the n-component paths on ternaries (see the constants)."""
+    paths, times, cells = {}, {}, {}
+    kinds = (("(a) non-associating", "mix", TERNARY, TERNARY_Z, 180.0, 200.0),
+             ("(b) cross-associating [inert, A, B]", "mix", CROSS_TERNARY, CROSS_Z, 140.0,
+              160.0),
+             ("(c) gc butane/propane/pentane", "gc", None, TERNARY_Z, 230.0, 250.0))
+    for tag, kind, params, z, t_lo, t_hi in kinds:
+        t0 = time.perf_counter()
+        for rows in TERNARY_SIZES:
+            cell = Ternary(kind, rows, z, t_lo, t_hi, params)
+            out = {}
+            for name in ("bubble", "dew"):
+                label = f"ternary {tag} {name} B={rows}"
+                out[name], paths[label] = ternary_case(label, name, cell, dev)
+                if tag.startswith("(b)"):
+                    slot_order(label, name, cell, dev, out[name])
+            below = bool((out["dew"][1] < out["bubble"][1]).all())
+            print(f"  ternary {tag} B={rows}: dew below bubble on every row: {below}")
+            check(below, f"ternary {tag} B={rows}: dew not below bubble")
+            cells[tag[:3], rows] = cell, out
+        times[tag[:3]] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for tag in ("(a)", "(c)"):
+        cell, out = cells[tag, TERNARY_ROWS]
+        label = f"ternary {tag} bubble T B={TERNARY_ROWS}"
+        paths[label] = ternary_temperature(label, cell, dev, out["bubble"][1])
+        label = f"ternary {tag} flash B={TERNARY_ROWS}"
+        paths[label] = ternary_flash(label, cell, dev, out["bubble"][1], out["dew"][1])
+    cell, out = cells["(a)", TERNARY_SIZES[-1]]
+    head, temperature, z, _ = cell.args(dev)
+    n = N_CPU
+    paths["mix_properties ternary (a)"] = property_case(
+        16, "mix_properties ternary (a)", partial(mix_properties, head, None),
+        partial(mix_helmholtz_energy_density, head, None),
+        partial(mix_properties, head[:n].cpu(), None), temperature, z, out["bubble"][3])
+    times["(d)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    trace = ternary_anchors(dev)
+    rows = TERNARY_SIZES[-1]
+    label = f"ternary (a) non-associating bubble B={rows}"
+    profile(16, label, partial(ternary_run, "bubble", *cells["(a)", rows][0].args(dev)),
+            paths[label])
+    times["(e)"] = time.perf_counter() - t0
+    return paths, times, trace
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1637,6 +1902,12 @@ def main():
     print(power)  # the card's name and power limit, as nvidia-smi gives them
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        seconds[phase] = round(now - mark[0], 1)
+        mark[0] = now
 
     built = build.build()
     print(f"kernel build: {built['seconds']:.1f} s -> {built['path']}")
@@ -1651,30 +1922,42 @@ def main():
     print(f"  f64 instructions run: row stage {probes['row']}, at each density "
           f"{probes['base']} (hard sphere, chain, dispersion) + {probes['dipole']} "
           f"(dipole) + {probes['assoc']} (association, na = nb)")
+    lap("1-2")
 
     params_np, temperature_np = make_batch(B, seed=0)
     params, temperature = f64(params_np, dev), f64(temperature_np, dev)
     kernel = kernel_vs_plain(dev, params, temperature)
+    lap("3")
     readme_anchors(dev)
+    lap("4")
     launches, by_k, nans_vp, p_sat = main_path(dev, params, temperature, power)
+    lap("5")
 
     # phases 6-10: the rest of the pure-component surface on the same rows
     paths = {"vapor_pressure": {"launches": launches,
                                 "by_k": {str(k): n for k, n in sorted(by_k.items())}}}
     nans_l, rho_l, liquid_paths = liquid_densities(params, temperature, p_sat)
     paths.update(liquid_paths)
+    lap("6")
     paths["critical_point"] = critical_points(params)
+    lap("7")
     paths["boiling_temperature"] = boiling_temperatures(params, temperature, p_sat, nans_vp)
+    lap("8")
     paths["pure_properties"] = residual_properties(params, temperature, p_sat, nans_l, rho_l)
+    lap("9")
     paths["fit_pure"] = fit(params_np, temperature, p_sat, rho_l)
+    lap("10")
 
     # phases 11-12: binary mixtures (torch ops only: no phi_d2 launch)
     paths["mix_derivatives"] = mixture_derivatives(dev)
+    lap("11")
     paths.update(mixtures(dev))
+    lap("12")
 
     # phase 13: gc-PC-SAFT (torch ops only: no phi_d2 launch)
     paths["gc_derivatives"] = gc_derivative_set(dev)
     paths.update(gc_mixtures(dev))
+    lap("13")
 
     # phase 14: the binary workload on bubble and dew points (torch ops; the
     # diagrams' pure seeds launch phi_d2)
@@ -1693,6 +1976,7 @@ def main():
     done = time.perf_counter()
     print(f"phase 14: {done - t14:.1f} s: (a) {t14b - t14:.1f}, (b) {t14c - t14b:.1f}, "
           f"(c) {t14d - t14c:.1f}, (d) {t14e - t14d:.1f}, (e) {done - t14e:.1f}")
+    lap("14")
 
     # phase 15: the isothermal pT flash (torch ops: no phi_d2 launch)
     t15 = time.perf_counter()
@@ -1704,7 +1988,17 @@ def main():
     times["(c)"] = done - t15c
     print(f"phase 15: {done - t15:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(times.items())))
-    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main")
+    lap("15")
+
+    # phase 16: n-component mixtures (torch ops: no phi_d2 launch)
+    t16 = time.perf_counter()
+    ternary_paths, times, _ = ternaries(dev)
+    paths.update(ternary_paths)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(times.items())))
+    lap("16")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main; "
+          f"seconds by phase {seconds}")
 
     shapes = kernel["shapes"]
     ref = shapes["(B, 2)"]  # the most launched shape, with (B, 1)

@@ -4,14 +4,16 @@ Differentiable PC-SAFT in f64.  Pure components: the Helmholtz energy and
 its density derivatives, residual properties, and batched vapor pressures,
 liquid densities, critical points and boiling temperatures with exact
 reverse-mode gradients with respect to all 8 parameters of every row, and
-the parameter fit built on them.  Binary mixtures: the Helmholtz energy
-with its association fixed points and derivative set (A, p~, mu, v), and
-batched bubble and dew pressures and temperatures with gradients with
-respect to the parameters, kij and epsilon_k_AiBj, residual properties,
-p-x-y and T-x-y diagrams, the kij fit, and the isothermal pT flash with
-implicit-function gradients.  Heterosegmented (group-contribution)
-binaries: the same, with gradients in the segment parameters, k_ab and
-phi, and the k_ab fit.
+the parameter fit built on them.  Mixtures of n components: the Helmholtz
+energy with its association fixed points and derivative set (A, p~, mu,
+v), and batched bubble and dew pressures and temperatures with gradients
+with respect to the parameters, residual properties and the isothermal pT
+flash with implicit-function gradients; for binaries also kij and
+epsilon_k_AiBj with their fit, and p-x-y and T-x-y diagrams.
+Heterosegmented (group-contribution) mixtures: the same, with gradients in
+the segment parameters, k_ab and phi, and the k_ab fit.  Association reads
+each row's associating pair wherever it sits in the component order; three
+or more associating components raise ``ValueError``.
 
 * :class:`PcSaftPure` -- ``nn.Module`` facade holding ``(B, 8)`` parameters;
 * :func:`vapor_pressure`, :func:`liquid_density`,
@@ -19,8 +21,9 @@ phi, and the k_ab fit.
   :func:`boiling_temperature` -- functional forms, ``(nans, values)``;
 * :func:`pure_properties` -- residual property set at (T, rho);
 * :func:`pure_loss`, :func:`fit_pure` -- parameter regression;
-* :class:`PcSaftMix` -- ``nn.Module`` facade holding ``(B, 2, 8)``
-  parameters and ``(B, 2)`` kij; :func:`bubble_point`, :func:`dew_point`
+* :class:`PcSaftMix` -- ``nn.Module`` facade holding ``(B, n, 8)``
+  parameters and, for a binary, ``(B, 2)`` kij; compositions ``(B, n)``
+  (x1 per row for a binary only); :func:`bubble_point`, :func:`dew_point`
   -- functional forms, ``(p, nans)`` as in the JAX package;
   :func:`bubble_point_t`, :func:`dew_point_t` -- temperatures at given
   pressure, ``(t, nans)``; :func:`mix_derivatives`,

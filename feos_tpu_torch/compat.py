@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .models.gc_pcsaft import GcTopology, assemble, kab_matrix, solve_incipient_gc
-from .models.pcsaft_mix import binary_inputs, solve_incipient
+from .models.pcsaft_mix import mixture_inputs, solve_incipient
 from .solvers.vle import npt_density, pure_vle
 from .units import PA_PER_KT_TO_REDUCED
 
@@ -28,7 +28,10 @@ def _t(x, device):
 
 class PcSaft:
     """Static batched solvers with the reference's return conventions
-    (reference src/pcsaft.rs:13-80)."""
+    (reference src/pcsaft.rs:13-80).  Its bubble and dew points are the
+    reference's binary API (x1 per row, ``(B, 2, 8)`` parameters, the
+    ``(B_ok, 4)`` packing); n-component mixtures use
+    :func:`feos_tpu_torch.bubble_point` and :func:`~feos_tpu_torch.dew_point`."""
 
     @staticmethod
     def vapor_pressure(parameters, temperature, device="cuda"):
@@ -73,7 +76,8 @@ class GcPcSaft:
     ``segments``/``bonds`` are per-row pairs of segment-name lists and bond
     index-pair lists, ``phi`` the ``(B, 2)`` dispersion correction (or
     ``None``).  The solves run on ``device``, the card unless the caller
-    asks for the CPU.
+    asks for the CPU.  Like the reference, it is binary only; n-component gc
+    mixtures use :class:`~feos_tpu_torch.GcPcSaftMix`.
     """
 
     def __init__(self, segment_records, segments, bonds, binary_segment_records, phi,
@@ -85,9 +89,10 @@ class GcPcSaft:
                          _t([k for _, _, k in binary_segment_records], device))
         self.params = assemble(GcTopology.build(names, segments, bonds), parameter, kab,
                                None if phi is None else _t(phi, device))
+        _binary_only(self.params.m_mix.shape[1])
 
     def _solve(self, temperature, molefracs, pressure, bubble):
-        t, z, p_red = binary_inputs(self.params.m.device, temperature, molefracs, pressure)
+        t, z, p_red = mixture_inputs(self.params.m.device, temperature, molefracs, pressure, 2)
         rho_inc, rho_bulk, ok, _ = solve_incipient_gc(self.params, t, z, p_red, bubble)
         return _pack_binary(rho_inc, rho_bulk, ok, bubble)
 
@@ -100,10 +105,18 @@ class GcPcSaft:
         return self._solve(temperature, vapor_molefracs, pressure, bubble=False)
 
 
+def _binary_only(n):
+    if n != 2:
+        raise ValueError(f"the reference's bubble and dew API is binary only, got {n} "
+                         "components")
+
+
 def _binary_vle(parameters, kij, temperature, molefracs, pressure, bubble, device):
-    t, z, p_red = binary_inputs(device, temperature, molefracs, pressure)
+    parameters = _t(parameters, device)
+    _binary_only(parameters.shape[1])
+    t, z, p_red = mixture_inputs(device, temperature, molefracs, pressure, 2)
     rho_inc, rho_bulk, ok, _ = solve_incipient(
-        _t(parameters, device), None if kij is None else _t(kij, device), t, z, p_red, bubble,
+        parameters, None if kij is None else _t(kij, device), t, z, p_red, bubble,
     )
     return _pack_binary(rho_inc, rho_bulk, ok, bubble)
 

@@ -1,6 +1,7 @@
 """Heterosegmented gc-PC-SAFT in PyTorch: parameter assembly, Helmholtz
-energy density, its derivative set, and bubble and dew pressures with
-gradients in the segment parameters, k_ab and phi.
+energy density, its derivative set, and bubble and dew pressures and
+temperatures and the pT flash of n-component mixtures, with gradients in
+the segment parameters, k_ab and phi.
 
 Counterpart of ``feos_tpu/models/gc_pcsaft.py``.  The molecule topologies
 are host data, built once per distinct topology (:class:`GcTopology`) and
@@ -15,6 +16,9 @@ inputs.
   regime some row reaches (``GcPre.branches``, found by
   :func:`precompute_gc` from its own row masks), with the JAX package's
   sanitisation of masked rows, and selected per row with ``torch.where``.
+  The cross and induced terms read each row's associating pair wherever it
+  sits (``GcPre.pair``); three or more associating components raise
+  ``ValueError`` (the JAX package reads slots 0 and 1).
 * Bubble and dew points run the detached f64 solver and re-attach the
   gradient through the stationary identity shared with the mixture model
   (:func:`feos_tpu_torch.models.pcsaft_mix.reattach_incipient`); the
@@ -41,8 +45,8 @@ from .common import (
     DipolePre, assoc_strength_from_tfactor, phi_dipole_pre, precompute_dipole,
 )
 from .pcsaft_mix import (
-    BRANCHES, _columns, _f64, binary_inputs, induced_assoc_term, needs_grad, q_f1,
-    reattach_incipient,
+    BRANCHES, TOO_MANY_ASSOCIATING, _columns, _f64, associating_pair, induced_assoc_term,
+    mixture_inputs, needs_grad, pair_block, pair_slots, q_f1, reattach_incipient,
 )
 
 PI = np.pi
@@ -237,16 +241,19 @@ class GcPre(NamedTuple):
     self_m: torch.Tensor    # (B,) bool regime masks (parameter-only)
     cross_m: torch.Tensor
     induced_m: torch.Tensor
+    pair: torch.Tensor      # (B, 2) int64 slots of the associating pair, (0, 1) elsewhere
     branches: frozenset     # the regimes some row reaches (BRANCHES names)
 
 
 def _gc_assoc_tfactors(g: GcParams, temperature, mask):
     """Pairwise association T-factors and diameter factors with the gc
     sanitisation (reference feos_torch/gc_pcsaft.py:549-564): the diameter
-    is recomputed from the associating segment's own sigma/epsilon_k."""
+    is recomputed from the associating segment's own sigma/epsilon_k.
+    ``mask (B, n)`` marks the associating pair of the regime's rows; the
+    other entries, which the terms never read, are sanitised."""
     t = temperature[:, None]
-    sigma = torch.where(mask[:, None], g.sigma_assoc, 1.0)
-    kappa = torch.where(mask[:, None], g.kappa_ab, 1.0)
+    sigma = torch.where(mask, g.sigma_assoc, 1.0)
+    kappa = torch.where(mask, g.kappa_ab, 1.0)
     d = sigma * (1.0 - 0.12 * torch.exp(-3.0 * g.epsilon_k_assoc / t))
     sigma3_kappa = (sigma[:, :, None] * sigma[:, None, :]) ** 1.5 * torch.sqrt(
         kappa[:, :, None] * kappa[:, None, :])
@@ -270,7 +277,8 @@ def precompute_gc(g: GcParams, temperature) -> GcPre:
     dipolar = (g.mu2 > 0.0).any(-1)
 
     # association regime masks (parameter-only)
-    n_assoc = (g.kappa_ab * g.epsilon_k_ab != 0.0).sum(-1)
+    is_assoc = g.kappa_ab * g.epsilon_k_ab != 0.0
+    n_assoc = is_assoc.sum(-1)
     n_self = (g.na * g.nb != 0.0).sum(-1)
     self_m = (n_assoc == 1) & (n_self == 1)
     cross_m = (n_assoc == 2) & (n_self == 2)
@@ -282,16 +290,14 @@ def precompute_gc(g: GcParams, temperature) -> GcPre:
     self_d = sigma_s * (1.0 - 0.12 * torch.exp(-3.0 * g.epsilon_k_assoc.sum(-1) / temperature))
     self_st = sigma_s**3 * kappa_s * (torch.exp(g.epsilon_k_ab.sum(-1) / temperature) - 1.0)
 
-    cross_t, dd_cross = _gc_assoc_tfactors(g, temperature, cross_m)
-    ind_t, dd_ind = _gc_assoc_tfactors(g, temperature, induced_m)
+    cross_t, dd_cross = _gc_assoc_tfactors(g, temperature, cross_m[:, None] & is_assoc)
+    ind_t, dd_ind = _gc_assoc_tfactors(g, temperature, induced_m[:, None] & is_assoc)
 
     # the reachable regimes, from the masks themselves (one host sync)
-    masks = torch.stack([dipolar, self_m, cross_m, induced_m, n_assoc > 1])
-    *reached, multi = masks.any(-1).tolist()
-    if multi and g.m_mix.shape[1] != 2:
-        # the cross and induced terms pair components 0 and 1 (the JAX
-        # package drops or misplaces association here)
-        raise ValueError("two or more associating components need a binary mixture")
+    masks = torch.stack([dipolar, self_m, cross_m, induced_m, n_assoc > 2])
+    *reached, too_many = masks.any(-1).tolist()
+    if too_many:
+        raise ValueError(TOO_MANY_ASSOCIATING)
     branches = frozenset(name for name, on in zip(BRANCHES, reached) if on)
 
     return GcPre(
@@ -302,7 +308,8 @@ def precompute_gc(g: GcParams, temperature) -> GcPre:
         is_assoc=torch.sign(g.kappa_ab * g.epsilon_k_ab),
         self_st=self_st, self_d=self_d, cross_t=cross_t, dd_cross=dd_cross,
         ind_t=ind_t, dd_ind=dd_ind,
-        self_m=self_m, cross_m=cross_m, induced_m=induced_m, branches=branches,
+        self_m=self_m, cross_m=cross_m, induced_m=induced_m,
+        pair=associating_pair(is_assoc, n_assoc), branches=branches,
     )
 
 
@@ -382,7 +389,7 @@ def phi_gc_pre(pre: GcPre, density, assoc_q_form: bool = False):
         phi = phi + torch.where(col(pre.cross_m), a, 0.0)
     if "induced" in pre.branches:
         a = induced_assoc_term(pre.induced_m, pre.ind_t, pre.dd_ind, pre.na, pre.nb,
-                               rho, zeta2, zeta3_m1, col, assoc_q_form)
+                               pre.pair, rho, zeta2, zeta3_m1, col, assoc_q_form)
         phi = phi + torch.where(col(pre.induced_m), a, 0.0)
     return phi
 
@@ -405,14 +412,15 @@ def _phi_cross_assoc(pre: GcPre, rho, zeta2, zeta3_m1, col, q_form=False):
     """Two self-associating segments, nA = nB = 1 fixed point
     (reference feos_torch/gc_pcsaft.py:333-380)."""
     mask = col(pre.cross_m)
+    tfac, dd = pair_block(pre.cross_t, pre.pair), pair_block(pre.dd_cross, pre.pair)
+    at = pair_slots(pre.pair, col)
 
     def delta_rho(i, j):
-        d = assoc_strength_from_tfactor(col(pre.cross_t[:, i, j]), col(pre.dd_cross[:, i, j]),
-                                        zeta2, zeta3_m1)
-        return torch.where(mask, d * rho[..., j], 0.0)
+        d = assoc_strength_from_tfactor(col(tfac[:, i, j]), col(dd[:, i, j]), zeta2, zeta3_m1)
+        return torch.where(mask, d * at(rho, j), 0.0)
 
     d00, d01, d10, d11 = delta_rho(0, 0), delta_rho(0, 1), delta_rho(1, 0), delta_rho(1, 1)
-    rho0, rho1 = rho[..., 0], rho[..., 1]
+    rho0, rho1 = at(rho, 0), at(rho, 1)
     if q_form:
         xa0, xa1 = cross_assoc_sym_iterate(
             *torch.broadcast_tensors(*(v.detach() for v in (d00, d01, d10, d11))))
@@ -444,12 +452,10 @@ def gc_derivatives(params: GcParams, temperature, density):
 
 def solve_incipient_gc(params: GcParams, temperature, molefracs, p_red, bubble,
                        state0=None, stats=None):
-    """The detached gc bubble/dew solve: ``(rho_inc (B, 2), rho_bulk (B, 2),
-    ok (B,), p~_eq (B,))`` for bulk compositions ``(B, 2)`` and reduced
+    """The detached gc bubble/dew solve: ``(rho_inc (B, n), rho_bulk (B, n),
+    ok (B,), p~_eq (B,))`` for bulk compositions ``(B, n)`` and reduced
     pressure estimates ``(B,)``.  See
     :func:`feos_tpu_torch.solvers.vle.mix_vle`."""
-    if params.m_mix.shape[1] != 2:
-        raise ValueError("gc bubble and dew points are binary only")
     pre = precompute_gc(params.detach(), temperature.detach())
     return mix_vle(
         partial(phi_gc_pre, pre, assoc_q_form=True), partial(phi_gc_pre, pre),
@@ -464,8 +470,8 @@ def gc_incipient_property(params: GcParams, temperature, molefracs, pressure, bu
     detached solve, then the stationary re-attachment of
     :func:`feos_tpu_torch.models.pcsaft_mix.reattach_incipient`, with
     gradients in whatever ``params`` and ``temperature`` require."""
-    temperature, molefracs, p_red = binary_inputs(params.m.device, temperature, molefracs,
-                                                  pressure)
+    temperature, molefracs, p_red = mixture_inputs(params.m.device, temperature, molefracs,
+                                                   pressure, params.m_mix.shape[1])
     solved = solve_incipient_gc(params, temperature, molefracs, p_red, bubble, state0, stats)
     phi_fn = None
     if needs_grad(*params, temperature):
@@ -476,12 +482,15 @@ def gc_incipient_property(params: GcParams, temperature, molefracs, pressure, bu
 def gc_bubble_point(params: GcParams, temperature, liquid_molefracs, pressure,
                     full_output=False, state0=None, state_output=False, stats=None):
     """Batched gc bubble-point pressure (reference
-    feos_torch/gc_pcsaft.py:470-490).  ``liquid_molefracs`` is x1 per row or
-    ``(B, 2)``; ``pressure`` the initial estimate in Pa.  Returns ``(p,
-    nans)``, NaN on failed rows; ``full_output`` adds the vapor composition
-    ``(B, 2)`` and ``state_output`` the converged log-state ``(B, 3)``, which
-    ``state0`` takes back for a warm start.  If ``stats`` is a dict, it
-    receives the solver's loop iterations."""
+    feos_torch/gc_pcsaft.py:470-490) of mixtures of n molecules.
+    ``liquid_molefracs`` is ``(B, n)``, or x1 per row for a binary only (it
+    raises ``ValueError`` otherwise); ``pressure`` the initial estimate in
+    Pa.  Association reads each row's associating pair wherever it sits;
+    three or more associating molecules raise ``ValueError``.  Returns
+    ``(p, nans)``, NaN on failed rows; ``full_output`` adds the vapor
+    composition ``(B, n)`` and ``state_output`` the converged log-state
+    ``(B, n+1)``, which ``state0`` takes back for a warm start.  If
+    ``stats`` is a dict, it receives the solver's loop iterations."""
     return gc_incipient_property(params, temperature, liquid_molefracs, pressure, True,
                                  full_output, state0, state_output, stats)
 
@@ -489,7 +498,9 @@ def gc_bubble_point(params: GcParams, temperature, liquid_molefracs, pressure,
 def gc_dew_point(params: GcParams, temperature, vapor_molefracs, pressure,
                  full_output=False, state0=None, state_output=False, stats=None):
     """Batched gc dew-point pressure (reference
-    feos_torch/gc_pcsaft.py:492-512); see :func:`gc_bubble_point`."""
+    feos_torch/gc_pcsaft.py:492-512) at the vapor composition ``(B, n)``;
+    ``full_output`` adds the liquid composition.  See
+    :func:`gc_bubble_point`."""
     return gc_incipient_property(params, temperature, vapor_molefracs, pressure, False,
                                  full_output, state0, state_output, stats)
 
@@ -501,8 +512,9 @@ def gc_incipient_temperature(params: GcParams, pressure, molefracs, t0, bubble=T
     parameters, k_ab and phi behind them) and ``pressure`` require: the
     warm-started secant of
     :func:`feos_tpu_torch.models.pcsaft_mix.bubble_point_t` over
-    :func:`gc_incipient_property`.  Returns ``(t, nans)`` and with
-    ``full_output`` the incipient composition ``(B, 2)``; ``stats``
+    :func:`gc_incipient_property`, for ``(B, n)`` compositions (x1 per row
+    for a binary only).  Returns ``(t, nans)`` and with ``full_output`` the
+    incipient composition ``(B, n)``; ``stats``
     receives the secant's iterations as ``outer``."""
     from ..solvers.tsolve import incipient_temperature
 
@@ -513,14 +525,16 @@ def gc_incipient_temperature(params: GcParams, pressure, molefracs, t0, bubble=T
 
 
 def gc_flash(params: GcParams, temperature, molefracs, pressure, gradients=False, stats=None):
-    """Batched isothermal pT flash of gc binaries: the contract of
-    :func:`feos_tpu_torch.models.pcsaft_mix.flash`, over the gc phi, with
-    the window from detached gc bubble and dew solves.  With
+    """Batched isothermal pT flash of gc mixtures of n molecules: the
+    contract of :func:`feos_tpu_torch.models.pcsaft_mix.flash` (a ``(B, n)``
+    feed; z1 per row for a binary only), over the gc phi, with the window
+    from detached gc bubble and dew solves.  With
     ``gradients=True`` the derivatives of beta, x, y and rho re-attach in
     whatever ``params`` (the segment parameters, k_ab and phi behind them),
     T, z and p require."""
     dev = params.m.device
-    temperature, z, p_red = binary_inputs(dev, temperature, molefracs, pressure)
+    temperature, z, p_red = mixture_inputs(dev, temperature, molefracs, pressure,
+                                           params.m_mix.shape[1])
     pressure = torch.as_tensor(pressure, dtype=F64, device=dev)
     g_s, t_s, z_s = params.detach(), temperature.detach(), z.detach()
     p0 = torch.clamp(pressure.detach(), min=1e5)
@@ -536,11 +550,16 @@ def gc_flash(params: GcParams, temperature, molefracs, pressure, gradients=False
 
 
 class GcPcSaftMix(nn.Module):
-    """Module facade (reference ``GcPcSaftMix``, feos_torch/gc_pcsaft.py:13).
+    """Module facade (reference ``GcPcSaftMix``, feos_torch/gc_pcsaft.py:13)
+    for mixtures of any number n of molecules per row.
 
     The constructor takes the reference's ``(segment_identifier, parameter,
     segment_lists, bond_lists, binary_segment_records, phi=None)``, with
-    ``parameter`` the 8-tuple of ``(S,)`` segment columns; it holds the
+    ``parameter`` the 8-tuple of ``(S,)`` segment columns and n molecules in
+    each row's segment and bond lists.  Compositions are ``(B, n)`` (x1 per
+    row for a binary only); association reads each row's associating pair
+    wherever it sits, and three or more associating molecules raise
+    ``ValueError``.  It holds the
     ``(S, 8)`` segment parameters, the k_ab record values ``(R,)`` and phi
     ``(B, n)`` as ``nn.Parameter``\\ s on ``device`` (the card unless the
     caller asks for the CPU) and the topology as host data, and assembles

@@ -1,19 +1,26 @@
-"""Binary-mixture PC-SAFT in PyTorch: Helmholtz energy density, its
-derivative set, and bubble and dew pressures with parameter gradients.
+"""Mixture PC-SAFT in PyTorch: Helmholtz energy density, its derivative
+set, and bubble and dew pressures and temperatures and the pT flash of
+n-component mixtures, with parameter gradients.
 
 Counterpart of ``feos_tpu/models/pcsaft_mix.py``.  Parameters are ``(B, n,
 8)`` tensors (``[m, sigma, epsilon_k, mu, kappa_ab, epsilon_k_ab, na, nb]``
-per component) and the binary interaction ``kij`` is ``(B, 2)`` =
-``[k_ij, epsilon_k_AiBj]``.  The JAX package writes phi per item and maps it
-with ``vmap``; here the batch is the first axis of every tensor and a
-density is ``(B, ..., n)``: row ``b`` of every state uses row ``b`` of the
-parameters.  Everything is ``torch.float64`` on the device of the inputs.
+per component) and compositions ``(B, n)``; a ``(B,)`` x1 is the binary
+convention only.  The binary interaction ``kij`` is ``(B, 2)`` = ``[k_ij,
+epsilon_k_AiBj]``, binary only too.  The JAX package writes phi per item
+and maps it with ``vmap``; here the batch is the first axis of every
+tensor and a density is ``(B, ..., n)``: row ``b`` of every state uses row
+``b`` of the parameters.  Everything is ``torch.float64`` on the device of the inputs.
 
 * The dipolar and the three association regimes are computed on every row
   of a regime some row can reach (``MixPre.branches``, found once by
   :func:`precompute_mix` from the same parameters as the row masks), with
   the JAX package's sanitisation of masked rows, and selected per row with
   ``torch.where``.
+* The cross and induced association terms read the associating pair of
+  each row wherever it sits (``MixPre.pair``), so a mixture's association
+  does not depend on the order of its components; three or more
+  associating components in one row raise ``ValueError``.  (The JAX
+  package reads slots 0 and 1, and drops association for three.)
 * The association fixed points are ``torch.autograd.Function``\\ s with
   exact implicit derivatives of every order
   (:mod:`feos_tpu_torch.ops.association`).
@@ -109,6 +116,7 @@ class MixPre(NamedTuple):
     self_m: torch.Tensor   # (B,) bool regime masks (parameter-only)
     cross_m: torch.Tensor
     induced_m: torch.Tensor
+    pair: torch.Tensor     # (B, 2) int64 slots of the associating pair, (0, 1) elsewhere
     branches: frozenset    # the regimes some row reaches (BRANCHES names)
 
 
@@ -141,7 +149,8 @@ def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
     dip = precompute_dipole(m, sigma, epsilon_k, sigma**3 * epsilon_k * mu2, temperature)
 
     # association regime masks (parameter-only, rho-free)
-    n_assoc = (p.na + p.nb != 0.0).sum(-1)
+    is_assoc = p.na + p.nb != 0.0
+    n_assoc = is_assoc.sum(-1)
     n_self = (p.na * p.nb != 0.0).sum(-1)
     self_m = (n_assoc == 1) & (n_self == 1)
     cross_m = (n_assoc == 2) & (n_self == 2)
@@ -156,9 +165,11 @@ def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
     self_da = torch.where(self_m, (p.na * d).sum(-1) / na_sum, 1.0)
     self_st = sigma_a**3 * kappa_s * (torch.exp(eps_ab_s / temperature) - 1.0)
 
-    # cross / induced regimes: pairwise T-factors
-    kappa_c = torch.where(cross_m[:, None], p.kappa_ab, 1.0)
-    kappa_i = torch.where(induced_m[:, None], p.kappa_ab, 1.0)
+    # cross / induced regimes: pairwise T-factors, sanitised on masked rows
+    # and on the components outside the associating pair (whose entries the
+    # terms never read) so that the sqrt's gradients stay finite
+    kappa_c = torch.where(cross_m[:, None] & is_assoc, p.kappa_ab, 1.0)
+    kappa_i = torch.where(induced_m[:, None] & is_assoc, p.kappa_ab, 1.0)
     cross_t = _pairwise(lambda i, j: assoc_strength_tfactor(
         i, j, temperature, sigma, kappa_c, p.epsilon_k_ab, epsilon_k_aibj), n)
     ind_t = _pairwise(lambda i, j: assoc_strength_tfactor(
@@ -166,7 +177,10 @@ def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
     dd = d[:, :, None] * d[:, None, :] / (d[:, :, None] + d[:, None, :])
 
     # the reachable regimes, from the masks themselves (one host sync)
-    reached = torch.stack([dipolar, self_m, cross_m, induced_m]).any(-1).tolist()
+    masks = torch.stack([dipolar, self_m, cross_m, induced_m, n_assoc > 2])
+    *reached, too_many = masks.any(-1).tolist()
+    if too_many:
+        raise ValueError(TOO_MANY_ASSOCIATING)
     branches = frozenset(name for name, on in zip(BRANCHES, reached) if on)
 
     return MixPre(
@@ -175,8 +189,42 @@ def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
         e1=e1, e2=e2, dip=dip, dipolar=dipolar,
         self_st=self_st, self_da=self_da,
         cross_t=cross_t, ind_t=ind_t, dd=dd,
-        self_m=self_m, cross_m=cross_m, induced_m=induced_m, branches=branches,
+        self_m=self_m, cross_m=cross_m, induced_m=induced_m,
+        pair=associating_pair(is_assoc, n_assoc), branches=branches,
     )
+
+
+TOO_MANY_ASSOCIATING = ("three or more associating components in one mixture: the "
+                        "association terms pair at most two")
+
+
+def associating_pair(is_assoc, n_assoc):
+    """``(B, 2)`` slots of the two associating components of each row
+    (``is_assoc (B, n)``, ``n_assoc (B,)`` their count) in slot order, and
+    (0, 1) on rows without two: a binary's pair is always (0, 1)."""
+    n = is_assoc.shape[-1]
+    first = torch.argsort((~is_assoc).to(torch.int8), dim=-1, stable=True)[:, :2]
+    fallback = torch.arange(min(n, 2), device=is_assoc.device)
+    return torch.where((n_assoc == 2)[:, None], first, fallback)
+
+
+def pair_block(x, pair):
+    """``x (B, n, n)`` on the associating ``pair (B, 2)``: ``(B, 2, 2)``."""
+    rows = torch.take_along_dim(x, pair[:, :, None], dim=1)
+    return torch.take_along_dim(rows, pair[:, None, :], dim=2)
+
+
+def pair_slots(pair, col):
+    """``at(x, j)``: ``x (B, ..., n)`` at slot j of each row's associating
+    ``pair (B, 2)``, ``(B, ...)``; ``col`` as :func:`_columns` gives it.
+    Each call is its own gather, as each ``x[..., j]`` is its own select: a
+    binary's gradients then sum in the same order as with fixed slots."""
+    idx = [col(pair[:, j:j + 1]) for j in range(2)]
+
+    def at(x, j):
+        return torch.take_along_dim(x, idx[j], dim=-1)[..., 0]
+
+    return at
 
 
 def _columns(density):
@@ -296,16 +344,19 @@ def _phi_cross_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
     """Two self-associating components, 2-unknown fixed point
     (reference feos_torch/pcsaft_mix.py:241-321)."""
     mask = col(pre.cross_m)
+    tfac, dd2 = pair_block(pre.cross_t, pre.pair), pair_block(pre.dd, pre.pair)
 
     def delta(i, j):
         dd = assoc_strength_from_tfactor(
-            col(pre.cross_t[:, i, j]), col(pre.dd[:, i, j]), zeta2, zeta3_m1
+            col(tfac[:, i, j]), col(dd2[:, i, j]), zeta2, zeta3_m1
         )
         return torch.where(mask, dd, 0.0)
 
     d00, d01, d10, d11 = delta(0, 0), delta(0, 1), delta(1, 0), delta(1, 1)
-    rhoa = rho * col(pre.na)
-    rhob = rho * col(pre.nb)
+    # the pair's site densities, (B, ..., 2)
+    idx = col(pre.pair)
+    rhoa = torch.take_along_dim(rho * col(pre.na), idx, dim=-1)
+    rhob = torch.take_along_dim(rho * col(pre.nb), idx, dim=-1)
     args = (d00, d01, d10, d11, rhoa[..., 0], rhoa[..., 1], rhob[..., 0], rhob[..., 1])
     if q_form:
         a = torch.broadcast_tensors(*(v.detach() for v in args))
@@ -334,24 +385,28 @@ def _phi_cross_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
 def _phi_induced_assoc(pre: MixPre, rho, zeta2, zeta3_m1, col, q_form=False):
     """One self-associating + one induced (nA = 0) component
     (reference feos_torch/pcsaft_mix.py:324-393)."""
-    return induced_assoc_term(pre.induced_m, pre.ind_t, pre.dd, pre.na, pre.nb,
+    return induced_assoc_term(pre.induced_m, pre.ind_t, pre.dd, pre.na, pre.nb, pre.pair,
                               rho, zeta2, zeta3_m1, col, q_form)
 
 
-def induced_assoc_term(mask, tfac, dd, na, nb, rho, zeta2, zeta3_m1, col, q_form=False):
+def induced_assoc_term(mask, tfac, dd, na, nb, pair, rho, zeta2, zeta3_m1, col,
+                       q_form=False):
     """The induced-association term from ``(B,)`` regime ``mask``, ``(B, n,
-    n)`` T-factors ``tfac`` and diameter factors ``dd``, and ``(B, n)``
-    site counts; shared by the mixture and the gc model."""
+    n)`` T-factors ``tfac`` and diameter factors ``dd``, ``(B, n)`` site
+    counts and the ``(B, 2)`` slots of the associating ``pair``; shared by
+    the mixture and the gc model."""
     mask = col(mask)
+    tfac, dd = pair_block(tfac, pair), pair_block(dd, pair)
+    at = pair_slots(pair, col)
 
     def delta_rho(i, j):
         d = assoc_strength_from_tfactor(col(tfac[:, i, j]), col(dd[:, i, j]), zeta2, zeta3_m1)
-        return torch.where(mask, d * rho[..., j], 0.0)
+        return torch.where(mask, d * at(rho, j), 0.0)
 
     d00, d01 = delta_rho(0, 0), delta_rho(0, 1)
     d10, d11 = delta_rho(1, 0), delta_rho(1, 1)
     na, nb = col(na), col(nb)
-    na0, na1, nb0, nb1 = na[..., 0], na[..., 1], nb[..., 0], nb[..., 1]
+    na0, na1, nb0, nb1 = at(na, 0), at(na, 1), at(nb, 0), at(nb, 1)
     args = (d00, d01, d10, d11, na0, na1, nb0, nb1)
     if q_form:
         a = torch.broadcast_tensors(*(v.detach() for v in args))
@@ -360,18 +415,18 @@ def induced_assoc_term(mask, tfac, dd, na, nb, rho, zeta2, zeta3_m1, col, q_form
         xb1 = 1.0 / (1.0 + xa * (a[4] * a[2] + a[5] * a[3]))
         # sites: shared-A (rho-weighted na) + B_0 + B_1; dij here are
         # Delta_ij * rho_j, so rho_Ai rho_Bj Delta_ij = (na_i rho_i) nb_j d_ij
-        rho_a = na0 * rho[..., 0] + na1 * rho[..., 1]
+        rho_a = na0 * at(rho, 0) + na1 * at(rho, 1)
         bil = xa * (
-            na0 * rho[..., 0] * (nb0 * xb0 * d00 + nb1 * xb1 * d01)
-            + na1 * rho[..., 1] * (nb0 * xb0 * d10 + nb1 * xb1 * d11)
+            na0 * at(rho, 0) * (nb0 * xb0 * d00 + nb1 * xb1 * d01)
+            + na1 * at(rho, 1) * (nb0 * xb0 * d10 + nb1 * xb1 * d11)
         )
-        return (rho_a * q_f1(xa) + rho[..., 0] * nb0 * q_f1(xb0)
-                + rho[..., 1] * nb1 * q_f1(xb1) - bil)
+        return (rho_a * q_f1(xa) + at(rho, 0) * nb0 * q_f1(xb0)
+                + at(rho, 1) * nb1 * q_f1(xb1) - bil)
     xa = solve_induced_assoc(*args)
     xb0 = 1.0 / (1.0 + xa * (na0 * d00 + na1 * d01))
     xb1 = 1.0 / (1.0 + xa * (na0 * d10 + na1 * d11))
     f = site_fraction_free_energy
-    return rho[..., 0] * (f(xa) * na0 + f(xb0) * nb0) + rho[..., 1] * (
+    return at(rho, 0) * (f(xa) * na0 + f(xb0) * nb0) + at(rho, 1) * (
         f(xa) * na1 + f(xb1) * nb1
     )
 
@@ -410,13 +465,14 @@ def derivatives(parameters, kij, temperature, density):
 
 def solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble,
                     state0=None, stats=None):
-    """The detached bubble/dew solve: ``(rho_inc (B, 2), rho_bulk (B, 2), ok
-    (B,), p~_eq (B,))`` for ``(B, 2, 8)`` parameters, ``(B, 2)`` kij (or
-    ``None``), ``(B,)`` temperatures and reduced pressure estimates, and
-    bulk compositions ``(B, 2)``.  See
+    """The detached bubble/dew solve: ``(rho_inc (B, n), rho_bulk (B, n), ok
+    (B,), p~_eq (B,))`` for ``(B, n, 8)`` parameters, ``(B, 2)`` kij (or
+    ``None``; binary only), ``(B,)`` temperatures and reduced pressure
+    estimates, and bulk compositions ``(B, n)``.  See
     :func:`feos_tpu_torch.solvers.vle.mix_vle`."""
-    if parameters.dim() != 3 or parameters.shape[1] != 2:
-        raise ValueError("bubble and dew points are binary only: parameters must be (B, 2, 8)")
+    if parameters.dim() != 3 or parameters.shape[-1] != 8:
+        raise ValueError("parameters must be (B, n, 8)")
+    check_kij(kij, parameters.shape[1])
     pre = _pre(parameters.detach(), None if kij is None else kij.detach(),
                temperature.detach())
     return mix_vle(
@@ -427,14 +483,25 @@ def solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble,
     )
 
 
-def binary_inputs(device, temperature, molefracs, pressure):
-    """``(T (B,), z (B, 2), p~ (B,))`` in f64 on ``device`` from temperatures,
-    compositions (x1 per row, the reference's binary convention, or ``(B,
-    2)``) and pressures in Pa."""
+def check_kij(kij, n):
+    """kij is the binary interaction (the JAX package's rule)."""
+    if kij is not None and n != 2:
+        raise ValueError("kij can only be used for binary mixtures!")
+
+
+def mixture_inputs(device, temperature, molefracs, pressure, n):
+    """``(T (B,), z (B, n), p~ (B,))`` in f64 on ``device`` from temperatures,
+    compositions and pressures in Pa, for ``n`` components.  A ``(B, n)``
+    composition matrix passes through; a ``(B,)`` x1 is the reference's
+    binary convention and raises for ``n != 2`` (the JAX package's rule)."""
     temperature = torch.as_tensor(temperature, dtype=F64, device=device)
     molefracs = torch.as_tensor(molefracs, dtype=F64, device=device)
     pressure = torch.as_tensor(pressure, dtype=F64, device=device)
     if molefracs.dim() == 1:
+        if n != 2:
+            raise ValueError(
+                "scalar molefracs are the binary x1 convention; pass a "
+                f"(B, {n}) composition matrix for {n}-component mixtures")
         molefracs = torch.stack([molefracs, 1.0 - molefracs], -1)
     return temperature, molefracs, pressure / temperature * PA_PER_KT_TO_REDUCED
 
@@ -493,8 +560,8 @@ def _incipient_property(parameters, kij, temperature, molefracs, pressure, bubbl
                         full_output=False, state0=None, state_output=False, stats=None):
     """Shared bubble/dew implementation: the detached solve
     (:func:`solve_incipient`), then :func:`reattach_incipient`."""
-    temperature, molefracs, p_red = binary_inputs(parameters.device, temperature, molefracs,
-                                                  pressure)
+    temperature, molefracs, p_red = mixture_inputs(parameters.device, temperature, molefracs,
+                                                   pressure, parameters.shape[1])
     solved = solve_incipient(parameters, kij, temperature, molefracs, p_red, bubble, state0,
                              stats)
     phi_fn = None
@@ -520,14 +587,22 @@ def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure,
     """Batched bubble-point pressure in Pa with gradients in the parameters,
     kij and T (reference feos_torch/pcsaft_mix.py:422-444).
 
-    ``parameters (B, 2, 8)`` and ``kij (B, 2)`` (or ``None``) are float64
-    tensors on one device; ``temperature``, ``pressure`` (the initial
-    estimate in Pa) and ``liquid_molefracs`` (x1 per row, or ``(B, 2)``)
-    follow them.  Returns ``(p, nans)``, NaN on failed rows; with
-    ``full_output`` also the vapor composition ``(B, 2)``, and with
-    ``state_output`` the converged log-state ``(B, 3)`` to pass back as
-    ``state0`` for a warm start at nearby parameters.  If ``stats`` is a
-    dict, it receives the solver's loop iterations.
+    ``parameters (B, n, 8)`` are float64 tensors on one device, for any
+    number n of components; ``temperature``, ``pressure`` (the initial
+    estimate in Pa) and ``liquid_molefracs`` ``(B, n)`` follow them.  Two
+    conventions are binary only, as in the JAX package: ``liquid_molefracs``
+    as x1 per row ``(B,)``, and ``kij (B, 2)`` = ``[k_ij, epsilon_k_AiBj]``
+    (pass ``None`` for n != 2); either raises ``ValueError`` otherwise.  The
+    association terms read each row's associating pair wherever it sits in
+    the component order; three or more associating components raise
+    ``ValueError`` (the JAX package reads slots 0 and 1, and drops
+    association for three).
+
+    Returns ``(p, nans)``, NaN on failed rows; with ``full_output`` also the
+    vapor composition ``(B, n)``, and with ``state_output`` the converged
+    log-state ``(B, n+1)`` to pass back as ``state0`` for a warm start at
+    nearby parameters.  If ``stats`` is a dict, it receives the solver's
+    loop iterations.
     """
     return _incipient_property(parameters, kij, temperature, liquid_molefracs, pressure,
                                True, full_output, state0, state_output, stats)
@@ -536,8 +611,10 @@ def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure,
 def dew_point(parameters, kij, temperature, vapor_molefracs, pressure,
               full_output=False, state0=None, state_output=False, stats=None):
     """Batched dew-point pressure in Pa (reference
-    feos_torch/pcsaft_mix.py:446-468); ``full_output`` adds the liquid
-    composition.  See :func:`bubble_point`."""
+    feos_torch/pcsaft_mix.py:446-468) at the vapor composition
+    ``vapor_molefracs`` ``(B, n)`` (x1 per row for a binary only);
+    ``full_output`` adds the liquid composition ``(B, n)``.  The conventions
+    for n, kij and association are :func:`bubble_point`'s."""
     return _incipient_property(parameters, kij, temperature, vapor_molefracs, pressure,
                                False, full_output, state0, state_output, stats)
 
@@ -566,10 +643,11 @@ def bubble_point_t(parameters, kij, pressure, liquid_molefracs, t0, full_output=
     state, a detached secant in (1/T, ln p) runs warm solves from it, and
     one differentiable warm solve at the converged temperature plus one
     symbolic Newton step in T re-attach the gradients.  ``pressure`` and
-    ``t0`` are scalars or ``(B,)``; ``liquid_molefracs`` is x1 per row or
-    ``(B, 2)``.  Returns ``(t, nans)``, NaN on failed rows, and with
-    ``full_output`` also the vapor composition ``(B, 2)``.  If ``stats`` is a
-    dict, it receives the secant's iterations as ``outer``.
+    ``t0`` are scalars or ``(B,)``; ``liquid_molefracs`` is ``(B, n)``, or
+    x1 per row for a binary (the conventions of :func:`bubble_point`).
+    Returns ``(t, nans)``, NaN on failed rows, and with ``full_output`` also
+    the vapor composition ``(B, n)``.  If ``stats`` is a dict, it receives
+    the secant's iterations as ``outer``.
     """
     return _incipient_temperature(parameters, kij, pressure, liquid_molefracs, t0, True,
                                   full_output, stats)
@@ -584,11 +662,12 @@ def dew_point_t(parameters, kij, pressure, vapor_molefracs, t0, full_output=Fals
 
 
 def flash(parameters, kij, temperature, molefracs, pressure, gradients=False, stats=None):
-    """Batched isothermal pT flash at (T, p, z) of binary mixtures.
+    """Batched isothermal pT flash at (T, p, z) of n-component mixtures.
 
-    ``parameters (B, 2, 8)`` and ``kij (B, 2)`` (or ``None``) are float64
-    tensors on one device; ``temperature`` [K], ``pressure`` [Pa] and
-    ``molefracs`` (the feed: z1 per row, or ``(B, 2)``) follow them.  The
+    ``parameters (B, n, 8)`` are float64 tensors on one device;
+    ``temperature`` [K], ``pressure`` [Pa] and ``molefracs`` (the feed,
+    ``(B, n)``) follow them.  z1 per row and ``kij (B, 2)`` are binary only,
+    and association follows the rule of :func:`bubble_point`.  The
     two-phase window comes from detached bubble and dew solves at the feed
     (their initial estimate floored at 1e5 Pa: the edge solvers recover from
     an estimate too high, not from one decades too low); inside it,
@@ -597,7 +676,7 @@ def flash(parameters, kij, temperature, molefracs, pressure, gradients=False, st
 
     Returns ``(vapor_frac, x, y, rho, phase)``: beta ``(B,)`` (0 for a
     liquid, 1 for a vapor, NaN where failed), the liquid and vapor mole
-    fractions ``(B, 2)`` (the feed where single-phase, NaN where that phase
+    fractions ``(B, n)`` (the feed where single-phase, NaN where that phase
     does not exist), the total densities ``(B, 2)`` = [liquid, vapor] in
     A^-3 on two-phase rows (NaN elsewhere; the unit
     :func:`~feos_tpu_torch.properties.mix_properties` takes), and the int8
@@ -612,7 +691,8 @@ def flash(parameters, kij, temperature, molefracs, pressure, gradients=False, st
     a scalar z1 feed carries dz through z_1 alone.  If ``stats`` is a dict,
     it receives the flash's loop iterations.
     """
-    temperature, z, p_red = binary_inputs(parameters.device, temperature, molefracs, pressure)
+    temperature, z, p_red = mixture_inputs(parameters.device, temperature, molefracs, pressure,
+                                           parameters.shape[1])
     pressure = torch.as_tensor(pressure, dtype=F64, device=parameters.device)
     params_s, t_s, z_s = parameters.detach(), temperature.detach(), z.detach()
     kij_s = None if kij is None else kij.detach()
@@ -630,21 +710,29 @@ def flash(parameters, kij, temperature, molefracs, pressure, gradients=False, st
 
 class PcSaftMix(nn.Module):
     """Module facade over the functional API (reference ``PcSaftMix``,
-    feos_torch/pcsaft_mix.py:12); binary mixtures only.
+    feos_torch/pcsaft_mix.py:12) for mixtures of n components.
 
-    Holds the ``(B, 2, 8)`` parameters and the ``(B, 2)`` ``kij`` =
-    ``[k_ij, epsilon_k_AiBj]`` (zeros when ``None``) as ``nn.Parameter``\\ s
-    on ``device``, the card unless the caller asks for the CPU.
+    Holds the ``(B, n, 8)`` parameters as an ``nn.Parameter`` on ``device``,
+    the card unless the caller asks for the CPU.  A binary also holds ``kij``
+    = ``[k_ij, epsilon_k_AiBj]`` ``(B, 2)`` (zeros when ``None``) as one;
+    for n != 2 ``kij`` must be ``None`` and the facade holds none (the JAX
+    package's rule).  Compositions are ``(B, n)`` (x1 per row for a binary
+    only), and association reads each row's associating pair wherever it
+    sits; three or more associating components raise ``ValueError``.
     """
 
     def __init__(self, parameters, kij=None, device="cuda"):
         super().__init__()
         params = _f64(parameters, device)
-        if params.dim() != 3 or params.shape[1] != 2:
-            raise ValueError("PcSaftMix is binary only: parameters must be (B, 2, 8)")
+        if params.dim() != 3 or params.shape[-1] != 8:
+            raise ValueError("parameters must be (B, n, 8)")
+        check_kij(kij, params.shape[1])
         self.params = nn.Parameter(params)
-        kij = np.zeros((params.shape[0], 2)) if kij is None else kij
-        self.kij = nn.Parameter(_f64(kij, device))
+        if params.shape[1] == 2:
+            kij = np.zeros((params.shape[0], 2)) if kij is None else kij
+            self.kij = nn.Parameter(_f64(kij, device))
+        else:
+            self.kij = None
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=F64, device=self.params.device)

@@ -139,7 +139,7 @@ def incipient_temperature(prop, prop_s, pressure, molefracs, t0, rows, device,
     produced a state.
 
     Returns ``(T, nans)`` and with ``full_output`` the incipient
-    composition ``(rows, 2)``; ``stats`` receives the outer iterations.
+    composition ``(rows, n)``; ``stats`` receives the outer iterations.
     """
     p_target = torch.as_tensor(pressure, dtype=torch.float64, device=device).expand(rows)
     t0 = torch.as_tensor(t0, dtype=torch.float64, device=device).detach().expand(rows)

@@ -1,5 +1,5 @@
 """Batched gradient-free pure VLE, density and critical-point solvers, and
-the binary bubble/dew solver, in PyTorch (f64).
+the n-component bubble/dew solver, in PyTorch (f64).
 
 Counterpart of the f64 paths of ``feos_tpu/solvers/vle.py`` (``pure_vle``
 and ``npt_density`` with ``mixed_precision=False``, ``pure_critical``,
@@ -752,7 +752,12 @@ def _mix_newton(phi_q, phi_exact, z, u0, limits: MixLimits):
         stiff = torch.maximum(J[:, n, n].abs(), J[:, n, :n].abs().sum(-1))
         out = torch.cat([mu[:, 0] - mu[:, 1], (pt[:, 0] - pt[:, 1])[:, None], pt, stiff[:, None]], 1)
         r = out[:, : n + 1]
-        step = _solve3(J, r)
+        # the binary keeps the JAX package's Cramer solve with its det clamp;
+        # wider rows take LU with partial pivoting without the error check
+        # (so without a host sync on the card): a singular row's step is not
+        # finite and ``bad`` stops it, as the JAX package's jnp.linalg.solve
+        step = (_solve3(J, r) if n == 2
+                else torch.linalg.solve_ex(J, r[..., None])[0][..., 0])
         p_allow = (_NEWTON_RES_RTOL * e[:, :n].sum(-1)
                    + _MIX_RES_P_ABS * e[:, n])
         res_mu = r[:, :n].abs().amax(-1)

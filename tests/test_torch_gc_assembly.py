@@ -128,15 +128,27 @@ def test_kab_matrix_is_symmetric_and_last_record_wins():
 
 
 def test_associating_components_beyond_a_binary_raise():
-    """The cross and induced terms pair components 0 and 1, so a ternary
-    with two associating components raises (the JAX package silently
-    misplaces or drops their association); one associating component is
-    well defined for any n, and bubble and dew points are binary only."""
+    """The cross and induced terms pair two components, so a ternary with
+    three associating components raises (the JAX package silently drops
+    their association); two are gathered wherever they sit, so the
+    derivative set does not depend on the order of the components; one
+    associating component is well defined for any n; a scalar x1 is the
+    binary convention only."""
     bonds = [[[[0, 1]], [[0, 1]], [[0, 1]]]]
     t, rho = _t([300.0]), _t([[1e-3, 1e-3, 1e-3]])
-    two = port_assemble([[["CH3", "OH"], ["CH3", "NH2"], ["CH3", "CH3"]]], bonds, [], None)
-    with pytest.raises(ValueError, match="binary"):
-        ft.gc_derivatives(two, t, rho)
+    three = port_assemble([[["CH3", "OH"], ["CH3", "NH2"], ["CH3", "OH"]]], bonds, [], None)
+    with pytest.raises(ValueError, match="three or more associating"):
+        ft.gc_derivatives(three, t, rho)
+    order = [2, 0, 1]
+    mols = [["CH3", "OH"], ["CH3", "NH2"], ["CH3", "CH3"]]
+    two = port_assemble([mols], bonds, [], None)
+    moved = port_assemble([[mols[i] for i in order]], bonds, [], None)
+    rho_2 = _t([[1e-3, 2e-3, 3e-3]])
+    with torch.no_grad():
+        a, p, mu, v = ft.gc_derivatives(two, t, rho_2)
+        a_m, p_m, mu_m, v_m = ft.gc_derivatives(moved, t, rho_2[:, order])
+    for x, y in ((a_m, a), (p_m, p), (mu_m, mu[:, order]), (v_m, v[:, order])):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-12)
     one = port_assemble([[["CH3", "OH"], ["CH3", "CH2"], ["CH3", "CH3"]]], bonds, [], None)
     want = jgc.gc_derivatives(jgc.assemble(
         IDENT, parameter_tuple(PARAMETER), [[["CH3", "OH"], ["CH3", "CH2"], ["CH3", "CH3"]]],
@@ -145,5 +157,5 @@ def test_associating_components_beyond_a_binary_raise():
         got = ft.gc_derivatives(one, t, rho)
     for x, y in zip(got, want):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-12)
-    with pytest.raises(ValueError, match="binary only"):
-        ft.gc_bubble_point(one, t, _t([[0.3, 0.3, 0.4]]), _t([1e5]))
+    with pytest.raises(ValueError, match="binary x1 convention"):
+        ft.gc_bubble_point(one, t, _t([0.3]), _t([1e5]))

@@ -2,20 +2,23 @@
 
 Config 3 of ``benchmarks/run_all.py`` over 130-170 K and seeded
 cross-associating pairs (with and without an eps_AiBj override) go through
-the port and through JAX's ``bubble_point`` (f32 warmup, f64 polish) in one
-jitted call.  Values are compared on the rows both accept, and the mask
+the port and, offline, through JAX's ``bubble_point`` (f32 warmup, f64
+polish): ``tools/gen_torch_mix_jax_reference.py`` writes JAX's outputs to
+``tests/golden/torch_mix_jax.npz`` (JAX compiles this solve for about a
+minute on a CPU).  Values are compared on the rows both accept, and the mask
 disagreements are counted (there are none on these rows).
 """
 
-import jax
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_mix as jmix
 
 CONFIG3 = [[1, 3.5, 150, 0, 0.02, 1500, 1, 1], [1, 3.5, 200, 0, 0.03, 2500, 1, 1]]
+REFERENCE = Path(__file__).resolve().parent / "golden" / "torch_mix_jax.npz"
 
 
 def cross_systems(seed, n=8):
@@ -40,17 +43,29 @@ def cross_systems(seed, n=8):
     return params, kij, temperature, x1
 
 
-@pytest.fixture(scope="module")
-def solved():
-    params, kij, temperature, x1 = cross_systems(seed=21, n=4)
+def jax_reference(name, inputs):
+    """JAX's ``(p, nans, composition)`` of the ``name`` solve from the
+    vendored file, after checking that it was written for ``inputs``."""
+    ref = np.load(REFERENCE)
+    for key, x in zip(("params", "kij", "t", "x1"), inputs):
+        np.testing.assert_array_equal(ref[f"{name}_{key}"], x, err_msg=f"stale {name}_{key}")
+    return [ref[f"{name}_{key}"] for key in ("p", "nans", "comp")]
+
+
+def port_and_reference(name, fn, seed):
+    """The port's ``fn`` with ``full_output`` on cross_systems(seed, n=4),
+    and JAX's vendored outputs on the same inputs."""
+    params, kij, temperature, x1 = cross_systems(seed=seed, n=4)
     p0 = np.full(len(x1), 1e5)
     t = [torch.as_tensor(x) for x in (params, kij, temperature, x1, p0)]
     with torch.no_grad():
-        port = ft.bubble_point(*t, full_output=True)
-    br = jmix.static_branches(params)
-    ref = jax.jit(lambda *a: jmix.bubble_point(*a, branches=br, full_output=True))(
-        params, kij, temperature, x1, p0)
-    return [x.numpy() for x in port], [np.asarray(x) for x in ref]
+        port = fn(*t, full_output=True)
+    return [x.numpy() for x in port], jax_reference(name, (params, kij, temperature, x1))
+
+
+@pytest.fixture(scope="module")
+def solved():
+    return port_and_reference("bubble", ft.bubble_point, seed=21)
 
 
 def test_masks_agree_with_jax(solved):

@@ -2,33 +2,23 @@
 
 Config 3 of ``benchmarks/run_all.py`` over 130-170 K and seeded
 cross-associating pairs (with and without an eps_AiBj override) go through
-the port and through JAX's ``dew_point`` (f32 warmup, f64 polish) in one
-jitted call.  Values are compared on the rows both accept, and the mask
-disagreements are counted (there are none on these rows).
+the port and, offline, through JAX's ``dew_point`` (f32 warmup, f64
+polish), whose outputs ``tools/gen_torch_mix_jax_reference.py`` writes to
+``tests/golden/torch_mix_jax.npz``.  Values are compared on the rows both
+accept, and the mask disagreements are counted (there are none on these
+rows).
 """
 
-import jax
 import numpy as np
 import pytest
-import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_mix as jmix
-
-from test_torch_mix_jax_bubble import cross_systems
+from test_torch_mix_jax_bubble import port_and_reference
 
 
 @pytest.fixture(scope="module")
 def solved():
-    params, kij, temperature, x1 = cross_systems(seed=22, n=4)
-    p0 = np.full(len(x1), 1e5)
-    t = [torch.as_tensor(x) for x in (params, kij, temperature, x1, p0)]
-    with torch.no_grad():
-        port = ft.dew_point(*t, full_output=True)
-    br = jmix.static_branches(params)
-    ref = jax.jit(lambda *a: jmix.dew_point(*a, branches=br, full_output=True))(
-        params, kij, temperature, x1, p0)
-    return [x.numpy() for x in port], [np.asarray(x) for x in ref]
+    return port_and_reference("dew", ft.dew_point, seed=22)
 
 
 def test_masks_agree_with_jax(solved):

@@ -8,46 +8,26 @@ identity built from the JAX package's f64 pieces (``precompute_mix``,
 ``phi_mix_pre``, ``pressure_set``) and differentiated by ``jacfwd`` at the
 port's converged densities, for config 3 of ``benchmarks/run_all.py`` and
 seeded cross-associating pairs, in all 8 parameters of both components, kij
-and eps_AiBj.  One jitted Jacobian returns the identity and the derivative
-set at the bulk density, so the cross-associating states of
-``test_torch_mix_eos`` share its compile (their identity is not used).
+and eps_AiBj; and JAX's ``jacfwd`` of the derivative set on the
+cross-associating states of ``test_torch_mix_eos``.  JAX compiles these
+Jacobians for about 40 s on a CPU, so ``tools/gen_torch_mix_jax_reference.py``
+writes them, with the densities they were taken at, to
+``tests/golden/torch_mix_jax.npz``; the fixture holds the port's live
+densities to those within 1e-10.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_mix as jmix
-from feos_tpu.ops.derivatives import pressure_set as jpressure_set
-from feos_tpu.units import REDUCED_TO_PA_PER_KT
 from test_torch_mix_eos import (
     OUTPUTS, _mix_states, _t, assert_jacobians_match, assert_rows_close, port_jacobians,
     regime_rows,
 )
-from test_torch_mix_jax_bubble import cross_systems
+from test_torch_mix_jax_bubble import REFERENCE, cross_systems
 
 BUBBLE = {"bubble": True, "dew": False}
-
-
-def _identity_and_set(p, k, t, r_inc, r_bulk):
-    """``[identity p~, A, p~, mu_0, mu_1, v_0, v_1]``: the bubble/dew
-    identity at (r_inc, r_bulk) and the derivative set at r_bulk, per row."""
-    pre = jmix.precompute_mix(jmix.MixParams.from_array(p), k[0], k[1], t)
-
-    def phi(x):
-        return jmix.phi_mix_pre(pre, x, branches=frozenset({"cross"}))
-
-    a, p_b, g_b, v_b = jpressure_set(phi, r_bulk)
-    mu_b = jnp.log(r_bulk) + g_b
-    rho_t = r_inc.sum()
-    w = r_inc / rho_t
-    v_bulk = (w * v_b).sum()
-    g_bulk = (w * (jnp.log(r_inc) - mu_b)).sum()
-    ident = -(phi(r_inc) / rho_t + p_b * v_bulk + g_bulk - 1.0) / (1.0 / rho_t - v_bulk)
-    return jnp.concatenate([ident[None], a[None], p_b[None], g_b, v_b])
 
 
 def _port_point(name, params, kij, temperature, x1):
@@ -68,33 +48,23 @@ def _port_point(name, params, kij, temperature, x1):
 @pytest.fixture(scope="module")
 def solved():
     """Per direction, the port's (p, dp/dparams, dp/dkij) and JAX's identity
-    value and Jacobians at the port's densities; and the port's and JAX's
-    Jacobians of the derivative set on the cross-associating states."""
+    value and Jacobians at the port's densities (vendored); and the port's
+    and JAX's Jacobians of the derivative set on the cross-associating
+    states."""
+    ref = np.load(REFERENCE)
     params, kij, temperature, x1 = cross_systems(seed=24, n=4)
-    port, rows = {}, []
+    for key, x in zip(("params", "kij", "t", "x1"), (params, kij, temperature, x1)):
+        np.testing.assert_array_equal(ref[f"grad_{key}"], x, err_msg=f"stale grad_{key}")
+    port, ref_out = {}, {}
     for name in BUBBLE:
         p, g_par, g_kij, rho_inc, rho_bulk = _port_point(name, params, kij, temperature, x1)
         port[name] = p, g_par, g_kij
-        rows.append((params, kij, temperature, rho_inc, rho_bulk))
+        # the vendored Jacobians hold at the densities they were taken at
+        for key, rho in (("rho_inc", rho_inc), ("rho_bulk", rho_bulk)):
+            np.testing.assert_allclose(rho, ref[f"grad_{name}_{key}"], rtol=1e-10, atol=0)
+        ref_out[name] = tuple(ref[f"grad_{name}_{key}"] for key in ("ident", "jpar", "jkij"))
     states = tuple(x[regime_rows("cross", "cross_eps")] for x in _mix_states())
-    s_params, s_kij, s_temperature, s_rho = states
-    rows.append((s_params, s_kij, s_temperature, 0.5 * s_rho, s_rho))
-    args = [np.concatenate(a) for a in zip(*rows)]
-
-    def with_value(*a):
-        out = _identity_and_set(*a)
-        return out, out
-
-    ref = jax.jit(jax.vmap(jax.jacfwd(with_value, argnums=(0, 1), has_aux=True)))
-    (j_par, j_kij), val = jax.tree_util.tree_map(np.asarray, ref(*args))
-    B = len(x1)
-    ref_out = {}
-    for i, name in enumerate(BUBBLE):
-        sl = slice(i * B, (i + 1) * B)
-        scale = (temperature * REDUCED_TO_PA_PER_KT)[:, None, None]
-        ref_out[name] = (val[sl, 0] * scale[:, 0, 0], j_par[sl, 0] * scale,
-                         j_kij[sl, 0] * scale[:, 0])
-    eos = port_jacobians(*states), (j_par[2 * B:, 1:], j_kij[2 * B:, 1:])
+    eos = port_jacobians(*states), (ref["grad_eos_jpar"], ref["grad_eos_jkij"])
     return port, ref_out, eos
 
 

@@ -216,7 +216,8 @@ def test_unreachable_pressure_masked():
 
 
 def test_facade_and_raises(solved):
-    """``PcSaftMix`` gives the functional results; three components raise."""
+    """``PcSaftMix`` gives the functional results; a scalar x1 for three
+    components raises (it is the binary convention)."""
     port, _, _ = solved
     eos = ft.PcSaftMix(MIXP, KIJ, device="cpu")
     with torch.no_grad():
@@ -227,5 +228,4 @@ def test_facade_and_raises(solved):
     np.testing.assert_array_equal(y_b.numpy(), port["bubble"][2])
     np.testing.assert_array_equal(t_d.numpy(), port["dew"][0].numpy())
     with pytest.raises(ValueError, match="binary"):
-        ft.bubble_point_t(_t(np.tile(MIXP[:1, :1], (1, 3, 1))), None, 1e5, _t([[0.2, 0.3, 0.5]]),
-                          T0)
+        ft.bubble_point_t(_t(np.tile(MIXP[:1, :1], (1, 3, 1))), None, 1e5, _t([0.2]), T0)

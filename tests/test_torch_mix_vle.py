@@ -371,11 +371,14 @@ def test_failed_rows_are_nan_with_finite_gradients():
 
 
 def test_non_binary_raises():
+    """What stays binary beyond two components: the association terms pair
+    two components, so three associating ones raise, and kij is binary
+    only (n-component mixtures are in test_torch_multicomponent.py)."""
     ternary = _t([[CONFIG3[0], CONFIG3[1], CONFIG3[0]]])
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="three or more associating"):
         ft.bubble_point(ternary, None, _t([150.0]), _t([[0.3, 0.3, 0.4]]), _t([1e5]))
-    with pytest.raises(ValueError):
-        ft.PcSaftMix(ternary.numpy(), device="cpu")
+    with pytest.raises(ValueError, match="binary"):
+        ft.PcSaftMix(ternary.numpy(), np.zeros((1, 2)), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["bubble", "dew"])
