@@ -50,8 +50,15 @@ below bubble); bubble temperatures, flashes without and with gradients
 (material balance, isofugacity) of (a) and (c) at 4,096 rows and the
 properties of (a)'s 100,000 bubble states; the trace dilution of (a) to
 its binary; a ValueError for three associating components; and the
-profile of (a)'s 100,000-row bubble call.  Every phase raises on failure;
-the seconds of each phase are printed at the end.
+profile of (a)'s 100,000-row bubble call.  Phase 17 drives data
+parallelism (``feos_tpu_torch/parallel``) as one rank of an NCCL group on
+this card: phase 10's ``fit_pure`` with a mesh, held to phase 10 within
+1e-12; two ``fit_binary`` steps of phase 14's rows with and without a mesh,
+held to each other; and ``data_parallel(vapor_pressure)`` on phase 5's
+rows padded with NaN rows, held to phase 5.  Phase 18 runs the six
+examples of ``examples_torch/`` on the card (the fits at a few steps, whose
+losses must fall; the diagrams, whose dew curves must close).  Every phase
+raises on failure; the seconds of each phase are printed at the end.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -64,11 +71,13 @@ times and its bound.  Without CUDA the script exits nonzero and prints no
 result.
 """
 
+import importlib.util
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -87,6 +96,9 @@ from feos_tpu_torch import (
 from feos_tpu_torch.kernels import build
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
 from feos_tpu_torch.ops.derivatives import state_derivatives
+from feos_tpu_torch.parallel import (
+    all_reduce_sum, batch_mesh, data_parallel, initialize_multi_host, pad_to_multiple,
+)
 from feos_tpu_torch.solvers.vle import _ETA_GRID
 from feos_tpu_torch.utils import masked_sum
 from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, REDUCED_TO_PA_PER_KT, RGAS
@@ -220,6 +232,13 @@ TERNARY_ROWS = 4_096                # the further paths of 16(d)
 N_CPU_TERNARY = 512
 TRACE_Z = [0.4 - 5e-9, 0.6 - 5e-9, 1e-8]
 TRACE_RTOL = 1e-7
+# phase 17: data parallelism on one card
+DP_STEPS = 2                        # fit_binary steps with and without the mesh
+DP_PAD = 1_024                      # phase 5's rows padded to a multiple of this
+# phase 18: the examples, and the steps of each fit
+EXAMPLES = ("fit_parameters", "fit_binary_kij", "fit_gc_kab", "fit_flash_kij", "pxy_diagram",
+            "txy_diagram")
+EXAMPLE_STEPS = {"fit_parameters": 3, "fit_binary_kij": 2, "fit_gc_kab": 2, "fit_flash_kij": 2}
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -512,12 +531,17 @@ def on_card(fn):
     return out, time.perf_counter() - t0, phi_d2.launches, dict(phi_d2.launches_by_k)
 
 
+def launch_counts(seconds, launches, by_k):
+    """A path's entry of the kernels line: its phi_d2 launches by k and ms."""
+    return {"launches": launches, "by_k": {str(k): n for k, n in sorted(by_k.items())},
+            "ms": seconds * 1e3}
+
+
 def report(phase, name, nans, seconds, launches, by_k):
     n_ok = int((~nans).sum())
     print(f"phase {phase} {name}: converged {n_ok} of {nans.numel()}, "
           f"{seconds * 1e3:.1f} ms, phi_d2 launches {launches}, by k {by_k}")
-    return {"launches": launches, "by_k": {str(k): n for k, n in sorted(by_k.items())},
-            "ms": seconds * 1e3}
+    return launch_counts(seconds, launches, by_k)
 
 
 def cpu(*xs):
@@ -719,6 +743,7 @@ def fit(params_np, temperature, p_sat, rho_l):
     card = run(start[:N_CPU], *(x[:N_CPU] for x in data))
     on_cpu = run(start[:N_CPU], *cpu(*data))
     res, sec, n, by_k = on_card(lambda: run(start, *data))
+    rerun = (start, data, res, sec / FIT_STEPS)
     losses = res.loss_history.cpu().numpy()
     print(f"phase 10 fit_pure: B={len(start)}, {FIT_STEPS} steps in {sec * 1e3:.1f} ms, "
           f"step {sec / FIT_STEPS * 1e3:.1f} ms, losses {losses.tolist()}, phi_d2 launches "
@@ -730,7 +755,7 @@ def fit(params_np, temperature, p_sat, rho_l):
         no = torch.zeros(b.shape, dtype=torch.bool)
         agree(f"fit_pure {name}", no, a.cpu(), no, b, 1e-10)
     return {"launches_per_step": n / FIT_STEPS, "ms_per_step": sec / FIT_STEPS * 1e3,
-            "by_k": {str(k): v for k, v in sorted(by_k.items())}, "steps": FIT_STEPS}
+            "by_k": {str(k): v for k, v in sorted(by_k.items())}, "steps": FIT_STEPS}, rerun
 
 
 def mixture_derivatives(dev):
@@ -1893,6 +1918,118 @@ def ternaries(dev):
     return paths, times, trace
 
 
+def data_parallelism(dev, pure_fit, p_data, params_np, temperature_np, nans_vp, p_sat):
+    """Phase 17: a one-rank NCCL group (a file store in a temporary
+    directory) and its batch mesh on this card, its communicator built by a
+    first collective outside the timings; (a) phase 10's fit_pure
+    rerun with the mesh (same rows, steps and per-row parameters), its loss
+    history and parameters held to phase 10's within 1e-12; (b) DP_STEPS
+    steps of phase 14(c)'s fit_binary on FIT_BINARY_ROWS rows with and
+    without the mesh, held to each other within 1e-12; (c)
+    data_parallel(vapor_pressure) on phase 5's rows padded with NaN rows to
+    a multiple of DP_PAD, its rows held to phase 5's within 1e-12 and the
+    padded rows masked.  Each with its phi_d2 launches by k."""
+    paths = {}
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        group = initialize_multi_host(num_processes=1, process_id=0, backend="nccl",
+                                      init_method=f"file://{tmp}/store")
+        check(group == (0, 1), f"one-rank group: {group}")
+        try:
+            mesh = batch_mesh(device=dev)
+            # NCCL builds its communicator at the first collective: not a step's cost
+            _, sec, _, _ = on_card(lambda: all_reduce_sum(torch.ones(1, device=dev), mesh))
+            print(f"phase 17: NCCL group and first collective {sec * 1e3:.1f} ms")
+            start, data, ref, ref_step = pure_fit
+            res, sec, n, by_k = on_card(lambda: fit_pure(
+                start, data[0], p_sat=data[1], rho_liq=data[2], pressure=data[1],
+                steps=FIT_STEPS, mesh=mesh))
+            paths["fit_pure mesh"] = launch_counts(sec, n, by_k)
+            print(f"phase 17 fit_pure mesh: B={len(start)}, step {sec / FIT_STEPS * 1e3:.1f} ms "
+                  f"against phase 10's {ref_step * 1e3:.1f} ms, phi_d2 launches {n}, "
+                  f"by k {by_k}")
+            check(n > 0, "fit_pure with a mesh launched no phi_d2 kernel")
+            for what, a, b in (("loss history", res.loss_history, ref.loss_history),
+                               ("parameters", res.parameters.flatten(),
+                                ref.parameters.flatten())):
+                no = torch.zeros(b.shape, dtype=torch.bool)
+                agree(f"fit_pure mesh {what}", no, a.cpu(), no, b.cpu(), 1e-12, ref="phase 10")
+
+            temperature = np.linspace(140.0, 160.0, FIT_BINARY_ROWS)
+
+            def binary(m):
+                return fit_binary(CONFIG3, temperature, np.full(FIT_BINARY_ROWS, 0.5),
+                                  p_data[:FIT_BINARY_ROWS].cpu().numpy(), kij0=0.0,
+                                  epsilon_k_aibj0=900.0, steps=DP_STEPS, device=dev, mesh=m)
+
+            plain, sec_plain, _, _ = on_card(lambda: binary(None))
+            res, sec, n, by_k = on_card(lambda: binary(mesh))
+            paths["fit_binary mesh"] = launch_counts(sec, n, by_k)
+            print(f"phase 17 fit_binary: {DP_STEPS} steps on {FIT_BINARY_ROWS} rows, "
+                  f"{sec * 1e3:.1f} ms with the mesh, {sec_plain * 1e3:.1f} ms without, "
+                  f"losses {res.loss_history.tolist()}, phi_d2 launches {n}")
+            for what, a, b in (("loss history", res.loss_history, plain.loss_history),
+                               ("[kij, eps_AiBj]", res.parameters, plain.parameters)):
+                no = torch.zeros(b.shape, dtype=torch.bool)
+                agree(f"fit_binary mesh {what}", no, a.cpu(), no, b.cpu(), 1e-12,
+                      ref="no mesh")
+
+            padded = [pad_to_multiple(x, DP_PAD)[0] for x in (params_np, temperature_np)]
+            with torch.no_grad():
+                (nans, vp), sec, n, by_k = on_card(
+                    lambda: data_parallel(vapor_pressure, mesh, 2)(*padded))
+            paths["data_parallel vapor_pressure"] = report(
+                17, "data_parallel(vapor_pressure)", nans, sec, n, by_k)
+            check(len(nans) == len(padded[1]) > B and bool(nans[B:].all()),
+                  "the padded rows are not masked")
+            check(n > 0, "data_parallel(vapor_pressure) launched no phi_d2 kernel")
+            agree("data_parallel(vapor_pressure)", nans[:B].cpu(), vp[:B].cpu(),
+                  nans_vp.cpu(), p_sat.cpu(), 1e-12, ref="phase 5")
+        finally:
+            torch.distributed.destroy_process_group()
+    return paths
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples(dev):
+    """Phase 18: the six examples of examples_torch/ on the card, the fits
+    at EXAMPLE_STEPS steps (each loss must fall), the diagrams at 51 points
+    (the dew curve must close), each with its seconds and phi_d2 launches."""
+    paths = {}
+    for name in EXAMPLES:
+        module = load_example(name)
+        kwargs = {"steps": EXAMPLE_STEPS[name]} if name in EXAMPLE_STEPS else {}
+        out, sec, n, by_k = on_card(lambda: module.main(device=dev, **kwargs))
+        if name.endswith("diagram"):
+            n_points = len(out.x1)
+            system = f64(np.tile([module.PROPANE, module.BUTANE], (n_points, 1, 1)), dev)
+            dew = partial(dew_point, system, None)
+            if name == "pxy_diagram":
+                closes(name, dew, torch.full_like(out.p, module.T), out.y1, out.p)
+            else:
+                closes(name, dew, out.t, out.y1, torch.full_like(out.t, module.P))
+            check(n > 0, f"{name}: the pure seeds launched no phi_d2")
+            summary = f"{n_points} points"
+        else:
+            # a FitResult, or (parameters, loss history) of the examples' own loops
+            losses = (out.loss_history.cpu().numpy() if hasattr(out, "loss_history")
+                      else out[1])
+            check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+                  f"{name}: the loss does not fall: {losses.tolist()}")
+            summary = f"losses {np.asarray(losses).tolist()}"
+        print(f"phase 18 {name}: {sec:.1f} s, {summary}, phi_d2 launches {n}, by k {by_k}")
+        paths[f"example {name}"] = launch_counts(sec, n, by_k)
+    return paths
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1945,7 +2082,7 @@ def main():
     lap("8")
     paths["pure_properties"] = residual_properties(params, temperature, p_sat, nans_l, rho_l)
     lap("9")
-    paths["fit_pure"] = fit(params_np, temperature, p_sat, rho_l)
+    paths["fit_pure"], pure_fit = fit(params_np, temperature, p_sat, rho_l)
     lap("10")
 
     # phases 11-12: binary mixtures (torch ops only: no phi_d2 launch)
@@ -1997,6 +2134,15 @@ def main():
     print(f"phase 16: {time.perf_counter() - t16:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(times.items())))
     lap("16")
+
+    # phase 17: data parallelism, one rank on this card
+    paths.update(data_parallelism(dev, pure_fit, fit_data, params_np, temperature_np, nans_vp,
+                                  p_sat))
+    lap("17")
+
+    # phase 18: the six examples
+    paths.update(examples(dev))
+    lap("18")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main; "
           f"seconds by phase {seconds}")
 

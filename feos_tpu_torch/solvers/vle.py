@@ -99,7 +99,10 @@ def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign):
         torch.zeros((B, k), dtype=F64, device=dev),
     ])
     it = torch.zeros(B, dtype=torch.int64, device=dev)
-    done = torch.zeros((B, k), dtype=torch.bool, device=dev)
+    # a lane whose target or start is not finite (a NaN row that
+    # pad_to_multiple added) can never converge: done from the start, it
+    # does not hold the loop to its cap
+    done = ~(torch.isfinite(p_targets) & torch.isfinite(rho0))
     n_iter = 0
     while True:
         active = (~done).any(1) & (it < _MAX_NPT_ITER)

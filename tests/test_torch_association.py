@@ -3,10 +3,12 @@ the JAX package.
 
 Each ``torch.autograd.Function`` is held to JAX's ``custom_jvp`` on seeded
 physical inputs: the solution, and its first and second derivatives with
-respect to all 8 inputs (JAX in one jitted function of one shape).
-``gradcheck`` and ``gradgradcheck`` hold the backward to finite
-differences up to third order, and the shared helpers of
-``models/common.py`` are held to their JAX versions.
+respect to all 8 inputs (JAX in one jitted function of one shape, which
+compiles for about 20 s on a CPU: ``tools/gen_port_fixtures.py`` writes its
+values to ``tests/golden/torch_association_jax.npz``).  ``gradcheck`` and
+``gradgradcheck`` hold the backward to finite differences up to third
+order, and the shared helpers of ``models/common.py`` are held to their JAX
+versions.
 """
 
 import jax
@@ -15,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_golden import vendored
 from feos_tpu.models import common as jcommon
-from feos_tpu.ops import association as jassoc
 from feos_tpu_torch.models import common
 from feos_tpu_torch.ops import association as assoc
 
@@ -52,10 +54,8 @@ def _converged(residual, x, args):
     return np.all([np.abs(ri.numpy()) < 1e-12 for ri in r], axis=0)
 
 
-@pytest.fixture(scope="module")
-def cases():
-    """Inputs that reach their root, and JAX's solution, first and second
-    derivatives for both solvers."""
+def _inputs():
+    """Seeded inputs of both solvers that reach their root in the port."""
     rng = np.random.default_rng(5)
     cross = _cross_args(rng, 2 * N)
     x = assoc.cross_assoc_iterate(*_t(cross))
@@ -64,6 +64,18 @@ def cases():
     x = assoc.induced_assoc_iterate(*_t(induced))
     induced = induced[:, _converged(assoc._induced_residual, (x,), _t(induced))][:, :N]
     assert cross.shape[1] == N and induced.shape[1] == N
+    return cross, induced
+
+
+ORDERS = ("value", "first", "second")
+
+
+def jax_reference():
+    """JAX's solution, first and second derivatives of both solvers'
+    ``custom_jvp`` on :func:`_inputs`."""
+    from feos_tpu.ops import association as jassoc
+
+    cross, induced = _inputs()
 
     def derivs(f):
         def g(a):
@@ -74,8 +86,19 @@ def cases():
     ref = jax.jit(lambda c, i: (derivs(jassoc.solve_cross_assoc)(c),
                                 derivs(jassoc.solve_induced_assoc)(i)))
     out = ref(jnp.asarray(cross), jnp.asarray(induced))
-    return {"cross": (cross, jax.tree_util.tree_map(np.asarray, out[0])),
-            "induced": (induced, jax.tree_util.tree_map(np.asarray, out[1]))}
+    return {"cross": cross, "induced": induced,
+            **{f"{name}_{k}": x for name, o in zip(("cross", "induced"), out)
+               for k, x in zip(ORDERS, o)}}
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """Inputs that reach their root, and JAX's solution, first and second
+    derivatives for both solvers (vendored)."""
+    cross, induced = _inputs()
+    ref = vendored("association", exact={"cross": cross, "induced": induced})
+    return {name: (args, tuple(ref[f"{name}_{k}"] for k in ORDERS))
+            for name, args in (("cross", cross), ("induced", induced))}
 
 
 SOLVERS = {"cross": assoc.solve_cross_assoc, "induced": assoc.solve_induced_assoc}

@@ -6,21 +6,20 @@ non-associating pair, 8 rows): bubble pressures made by the port at kij =
 history and parameters, step by step), JAX's ``binary_loss`` at kij = 0,
 and ``jacfwd`` of JAX's f64 stationary identity at the port's densities,
 which gives the loss gradient in kij without the f32 partial molar volumes
-of JAX's shipped gradient.  The epsilon_k_AiBj fit, the kij recovery and
-the failed rows' state are in test_torch_binary_fit.py.
+of JAX's shipped gradient.  JAX compiles these for about 45 s on a CPU, so
+``tools/gen_port_fixtures.py`` writes its values, with the data and the
+port's densities they were taken at, to
+``tests/golden/torch_binary_regression_jax.npz``.  The epsilon_k_AiBj fit,
+the kij recovery and the failed rows' state are in
+test_torch_binary_fit.py.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu import regression as jregression
-from feos_tpu.models import pcsaft_mix as jmix
-from feos_tpu.ops.derivatives import pressure_set as jpressure_set
-from feos_tpu.units import REDUCED_TO_PA_PER_KT
+from _torch_golden import vendored
 
 COMP = np.array([[1, 3.5, 150, 0, 0, 0, 0, 0], [1, 3.5, 200, 0, 0, 0, 0, 0]], dtype=float)
 KIJ_TRUE = -0.1
@@ -47,6 +46,11 @@ def _data(comp, kij, temperature, x1):
 def _identity_pa(k, t, r_inc, r_bulk):
     """The bubble-point identity in Pa at (r_inc, r_bulk), per row, from
     JAX's f64 pieces, as a function of the pair [k_ij, eps_AiBj]."""
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_mix as jmix
+    from feos_tpu.ops.derivatives import pressure_set as jpressure_set
+    from feos_tpu.units import REDUCED_TO_PA_PER_KT
+
     pre = jmix.precompute_mix(jmix.MixParams.from_array(jnp.asarray(COMP)), k[0], k[1], t)
 
     def phi(x):
@@ -62,10 +66,9 @@ def _identity_pa(k, t, r_inc, r_bulk):
     return ident * t * REDUCED_TO_PA_PER_KT
 
 
-@pytest.fixture(scope="module")
-def case():
-    """The port's loss, gradient and state at kij = 0 and its 3-step fit;
-    JAX's loss, identity Jacobian at the port's densities, and 3-step fit."""
+def _port_case():
+    """The data, the port's loss, gradient and state at kij = 0 and its
+    3-step fit, and its converged densities at kij = 0."""
     p_data = _data(COMP, [KIJ_TRUE, 0.0], T, X1)
     kij = _t([0.0, 0.0]).requires_grad_()
     loss, state = ft.binary_loss(kij, _t(COMP), _t(T), _t(X1), _t(p_data), return_state=True)
@@ -78,15 +81,36 @@ def case():
             "fit": ft.fit_binary(COMP, T, X1, p_data, kij0=0.0, steps=STEPS, device="cpu")}
     u = port["state"]
     z = np.stack([X1, 1.0 - X1], 1)
-    r_inc, r_bulk = np.exp(u[:, :2]), z * np.exp(u[:, 2:3])
+    return port, p_data, {"r_inc": np.exp(u[:, :2]), "r_bulk": z * np.exp(u[:, 2:3])}
 
+
+def jax_reference():
+    """JAX's loss at kij = 0, its identity Jacobian at the port's densities
+    and its 3-step fit on the port's data."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu import regression as jregression
+
+    _, p_data, dens = _port_case()
     # fit_binary's own jits; binary_loss at its start reuses its cold solve's
     fit = jregression.fit_binary(COMP, T, X1, p_data, kij0=0.0, steps=STEPS)
     loss = jregression.binary_loss(jnp.zeros(2), COMP, T, X1, p_data)
     jac = jax.jit(jax.vmap(jax.jacfwd(_identity_pa), in_axes=(None, 0, 0, 0)))(
-        jnp.zeros(2), jnp.asarray(T), r_inc, r_bulk)
-    ref = jax.tree_util.tree_map(np.asarray, (loss, jac, fit))
-    return port, ref, p_data
+        jnp.zeros(2), jnp.asarray(T), dens["r_inc"], dens["r_bulk"])
+    return {"comp": COMP, "t": T, "x1": X1, "p_data": p_data, **dens, "loss": loss,
+            "jac": jac, "fit_parameters": fit.parameters, "fit_loss_history": fit.loss_history}
+
+
+@pytest.fixture(scope="module")
+def case():
+    """The port's loss, gradient and state at kij = 0 and its 3-step fit;
+    JAX's loss, identity Jacobian at the port's densities, and 3-step fit
+    (vendored)."""
+    port, p_data, dens = _port_case()
+    ref = vendored("binary_regression", exact={"comp": COMP, "t": T, "x1": X1},
+                   close={"p_data": p_data, **dens})
+    fit = ft.FitResult(ref["fit_parameters"], ref["fit_loss_history"])
+    return port, (ref["loss"], ref["jac"], fit), p_data
 
 
 def test_loss_matches_jax(case):

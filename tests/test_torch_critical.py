@@ -3,18 +3,19 @@
 Gross & Sadowski (2001) rows, the README row and a make_batch row on which
 the critical Newton does not converge go through the port's
 ``critical_point`` and, in one jit, through JAX ``critical_point`` with the
-gradient of sum T_c.  The critical conditions are checked at the port's
-states, and the gradient against central finite differences.
+gradient of sum T_c.  JAX compiles that for about a minute on a CPU, so
+``tools/gen_port_fixtures.py`` writes its values to
+``tests/golden/torch_critical_jax.npz``.  The critical conditions are
+checked at the port's states, and the gradient against central finite
+differences.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_pure as jpure
+from _torch_golden import vendored
 
 # Gross & Sadowski (2001), Table 1: [m, sigma, eps_k] (tests/test_critical.py)
 GS2001 = [[1.0000, 3.7039, 150.03], [2.3316, 3.7086, 222.88], [3.8176, 3.8373, 242.78]]
@@ -31,13 +32,14 @@ def _t(x):
     return torch.as_tensor(np.asarray(x, dtype=np.float64))
 
 
-@pytest.fixture(scope="module")
-def case():
-    """(port, jax): each (nans, T_c, rho_c, d sum(T_c) / d params)."""
-    p = _t(PARAMS).requires_grad_()
-    nans, tc, rho_c = ft.critical_point(p)
-    torch.where(nans, 0.0, tc).sum().backward()
-    port = (nans.numpy(), tc.detach().numpy(), rho_c.detach().numpy(), p.grad.numpy())
+OUTPUTS = ("nans", "tc", "rho_c", "grad")
+
+
+def jax_reference():
+    """JAX's (nans, T_c, rho_c, d sum(T_c) / d params) on PARAMS."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_pure as jpure
 
     @jax.jit
     def reference(par):
@@ -48,8 +50,18 @@ def case():
         (_, aux), grad = jax.value_and_grad(loss, has_aux=True)(par)
         return (*aux, grad)
 
-    ref = tuple(np.asarray(x) for x in reference(jnp.asarray(PARAMS)))
-    return port, ref
+    return {"params": PARAMS, **dict(zip(OUTPUTS, reference(jnp.asarray(PARAMS))))}
+
+
+@pytest.fixture(scope="module")
+def case():
+    """(port, jax): each (nans, T_c, rho_c, d sum(T_c) / d params)."""
+    p = _t(PARAMS).requires_grad_()
+    nans, tc, rho_c = ft.critical_point(p)
+    torch.where(nans, 0.0, tc).sum().backward()
+    port = (nans.numpy(), tc.detach().numpy(), rho_c.detach().numpy(), p.grad.numpy())
+    ref = vendored("critical", exact={"params": PARAMS})
+    return port, tuple(ref[k] for k in OUTPUTS)
 
 
 def test_masks_match_jax(case):

@@ -6,6 +6,9 @@ pure components, the scalar-kij padding, the gc diagrams over a facade on
 replicated n-butane/propane rows, the bubble-dew round trip and the T-x-y
 closure through the pressure solver.  JAX's ``binary_pxy`` runs on the same
 pair from the port's Raoult estimate: p at 1e-9, y1 at 1e-8, equal masks.
+It compiles for about 20 s on a CPU, so ``tools/gen_port_fixtures.py``
+writes its diagram, with the estimate it started from, to
+``tests/golden/torch_diagrams_jax.npz``.
 """
 
 import numpy as np
@@ -13,7 +16,7 @@ import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu import diagrams as jdiagrams
+from _torch_golden import flat, unflat, vendored
 from feos_tpu_torch.diagrams import _raoult_init
 from test_torch_gc_eos import IDENT, PARAMETER, parameter_tuple
 
@@ -35,16 +38,33 @@ def gc_eos(rows=N):
                           [GC_BONDS] * rows, [], None, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def pxy():
-    """The port's and JAX's p-x-y diagram of the pair at 300 K; JAX starts
-    from the port's Raoult estimate (its own pure vapor pressures, held to
-    the port in test_torch_vapor_pressure.py, would add their compile)."""
+def _port_pxy():
+    """The port's p-x-y diagram of the pair at 300 K and its Raoult
+    estimate of the pressures."""
     with torch.no_grad():
         port = ft.binary_pxy(PARAMS, None, T, n_points=N, device="cpu")
         p0 = _raoult_init(_t(PARAMS), T, port.x1)
-    ref = jdiagrams.binary_pxy(PARAMS, None, T, n_points=N, pressure_init=p0.numpy())
-    return port, ref
+    return port, p0.numpy()
+
+
+def jax_reference():
+    """JAX's ``binary_pxy`` of the pair at 300 K from the port's Raoult
+    estimate (its own pure vapor pressures, held to the port in
+    test_torch_vapor_pressure.py, would add their compile)."""
+    from feos_tpu import diagrams as jdiagrams
+
+    _, p0 = _port_pxy()
+    ref = jdiagrams.binary_pxy(PARAMS, None, T, n_points=N, pressure_init=p0)
+    return {"params": PARAMS, "p0": p0, **flat("pxy", ref)}
+
+
+@pytest.fixture(scope="module")
+def pxy():
+    """The port's and JAX's p-x-y diagram of the pair at 300 K; JAX's
+    (vendored) starts from the port's Raoult estimate."""
+    port, p0 = _port_pxy()
+    ref = vendored("diagrams", exact={"params": PARAMS}, close={"p0": p0})
+    return port, unflat(ref, "pxy")
 
 
 def test_binary_pxy_shape_and_bounds(pxy):

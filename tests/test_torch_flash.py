@@ -2,11 +2,13 @@
 
 ``_rachford_rice``, ``flash_window`` and ``flash_resid`` (on the
 cross-associating row of tests/test_flash.py with its eps_AiBj override)
-and the mask helpers go through both packages live, in one jitted JAX
-function.  JAX's ``flash`` and ``gc_flash`` take minutes to compile on a
-CPU, so their outputs on tests/test_flash.py's six binary rows and its three
-gc rows, each at five pressures (mid-window, log-blends 0.999 toward either
-edge, 1.2 p_bubble, 0.8 p_dew), are read from
+and the mask helpers go through both packages, JAX's in one jitted function
+that compiles for about 15 s on a CPU (``tools/gen_port_fixtures.py`` writes
+its values to tests/golden/torch_flash_live_jax.npz).  JAX's ``flash`` and
+``gc_flash`` take minutes to compile on a CPU, so their outputs on
+tests/test_flash.py's six binary rows and its three gc rows, each at five
+pressures (mid-window, log-blends 0.999 toward either edge, 1.2 p_bubble,
+0.8 p_dew), are read from
 tests/golden/torch_flash_jax.npz (``tools/gen_torch_flash_reference.py``).
 The port runs every pressure of a model in one call and must give JAX's
 phase codes, with beta within rtol 1e-6 / atol 1e-9, x and y within atol
@@ -19,17 +21,14 @@ the facade against the function.
 
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_mix as jmix
-from feos_tpu.solvers import flash as jflash
-from feos_tpu.units import REDUCED_TO_PA_PER_KT
+from _torch_golden import vendored
 from feos_tpu.utils import masking as jmask
+from feos_tpu_torch.units import REDUCED_TO_PA_PER_KT
 from feos_tpu_torch.models.pcsaft_mix import _pre, phi_mix_pre
 from feos_tpu_torch.solvers import flash as tflash
 from feos_tpu_torch.solvers.vle import _val_and_jac
@@ -147,19 +146,41 @@ def resid_state():
             np.full(4, GOLDEN["mix_t"][i]), np.tile(z, (4, 1)), np.full(4, p_red), v)
 
 
-@pytest.fixture(scope="module")
-def jax_live():
-    """Rachford-Rice, the window, the residual with its Jacobian and the
-    masked reductions from JAX, in one jitted function."""
+def live_inputs():
+    """The seeded inputs of Rachford-Rice, the window, the residual and the
+    masked reductions."""
     rng = np.random.default_rng(11)
     z = rng.dirichlet(np.ones(3), 16)
     K = np.exp(rng.normal(0.0, 1.5, (16, 3)))
     beta0 = rng.uniform(-0.2, 1.2, 16)
     win, core = window_inputs()
     res = resid_state()
-    br = jmix.static_branches(res[0])
     vals = rng.normal(size=16)
     nans = rng.random(16) < 0.3
+    return {"rr": (z, K, beta0), "window": (win, core), "resid": res, "mask": (vals, nans)}
+
+
+def _flat_inputs(inputs):
+    """The inputs of :func:`live_inputs` as named arrays."""
+    (win, core), out = inputs["window"], {}
+    for key, group in (("rr", inputs["rr"]), ("win", win), ("core", core),
+                       ("resid", inputs["resid"]), ("mask", inputs["mask"])):
+        out.update({f"in_{key}{i}": np.asarray(x) for i, x in enumerate(group)})
+    return out
+
+
+def jax_reference():
+    """Rachford-Rice, the window, the residual with its Jacobian and the
+    masked reductions from JAX, in one jitted function."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_mix as jmix
+    from feos_tpu.solvers import flash as jflash
+
+    inputs = live_inputs()
+    (z, K, beta0), (win, core) = inputs["rr"], inputs["window"]
+    res, (vals, nans) = inputs["resid"], inputs["mask"]
+    br = jmix.static_branches(res[0])
 
     def resid(params, kij, t, zz, pr, v):
         def item(pi, ki, ei, ti, zi, pri, vi):
@@ -184,9 +205,22 @@ def jax_live():
         return (jax.vmap(jflash._rachford_rice)(z, K, beta0), packed, seen, F, J,
                 jmask.masked_mean(vals, nans), jmask.masked_sum(vals, nans))
 
-    out = run(z, K, beta0, win, core, res, vals, nans)
-    inputs = {"rr": (z, K, beta0), "window": (win, core), "resid": res, "mask": (vals, nans)}
-    return inputs, jax.tree_util.tree_map(np.asarray, out)
+    rr, packed, seen, F, J, mean, total = run(z, K, beta0, win, core, res, vals, nans)
+    return {**_flat_inputs(inputs), "rr": rr, "F": F, "J": J, "mean": mean, "total": total,
+            **{f"packed{i}": x for i, x in enumerate(packed)},
+            **{f"seen_{k}": x for k, x in seen.items()}}
+
+
+@pytest.fixture(scope="module")
+def jax_live():
+    """The inputs, and JAX's Rachford-Rice, window (with what the window
+    handed its core), residual with its Jacobian and masked reductions
+    (vendored)."""
+    inputs = live_inputs()
+    ref = vendored("flash_live", exact=_flat_inputs(inputs))
+    packed = tuple(ref[f"packed{i}"] for i in range(sum(k.startswith("packed") for k in ref)))
+    seen = {k: ref[f"seen_{k}"] for k in ("lnk0", "w", "active")}
+    return inputs, (ref["rr"], packed, seen, ref["F"], ref["J"], ref["mean"], ref["total"])
 
 
 def test_rachford_rice_matches_jax(jax_live):

@@ -12,8 +12,10 @@ function of one shape.  The Jacobians of the derivative set in the
 ``jacfwd`` through ``assemble`` -> ``precompute_gc`` -> ``pressure_set`` by
 regime: the rows without association here, the self-, cross- and
 induced-associating rows in ``test_torch_gc_eos_self.py``,
-``test_torch_gc_eos_cross.py`` and ``test_torch_gc_eos_induced.py`` (JAX
-compiles each branch set for 15-40 s on a CPU).
+``test_torch_gc_eos_cross.py`` and ``test_torch_gc_eos_induced.py``.  JAX
+compiles each branch set for 15-40 s on a CPU, so
+``tools/gen_port_fixtures.py`` writes JAX's values for all four files to
+``tests/golden/torch_gc_eos_jax.npz``.
 
 JAX's epsilon_k derivatives are NaN wherever the segment table holds a
 segment with epsilon_k = 0 (``>C<`` in sauer2014), used or not: autograd
@@ -25,15 +27,13 @@ held to finite differences here.
 import json
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_golden import flat, unflat, vendored
 from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu.models import gc_pcsaft as jgc
 from feos_tpu_torch.models import gc_pcsaft as gc
 
 REPO = Path(__file__).resolve().parent.parent
@@ -125,6 +125,8 @@ def port_params(segment_lists, bond_lists, kab, phi, parameter=PARAMETER, ident=
 
 
 def jax_params(segment_lists, bond_lists, kab, phi, parameter=PARAMETER, ident=IDENT):
+    from feos_tpu.models import gc_pcsaft as jgc
+
     return jgc.assemble(ident, parameter_tuple(parameter), segment_lists, bond_lists,
                         [(a, b, k) for (a, b), k in zip(KAB_PAIRS, kab)], phi)
 
@@ -137,28 +139,73 @@ def _flat(a, p, mu, v):
     return torch.cat([a[:, None], p[:, None], mu, v], 1)
 
 
-def regime_jacobians(regimes, branches, parameter=PARAMETER_NZ):
-    """The port's and JAX's Jacobians of the derivative set in the segment
-    parameters ``(B, 6, S, 8)``, the k_ab values ``(B, 6, R)`` and phi ``(B,
-    6, B, 2)`` on the states of the named regimes, with the segment table
-    ``parameter`` (default: the table without epsilon_k = 0 segments); JAX's
-    in one jitted ``jacfwd`` under the phi branch set ``branches``."""
+def regime_states(regimes):
+    """The states of :func:`gc_states` in the named regimes: ``(segment
+    lists, bond lists, kab, phi, T, rho)``."""
     segment_lists, bond_lists, kab, phi, temperature, rho, rows = gc_states()
     keep = np.isin(rows, regimes)
     segment_lists = [s for s, k in zip(segment_lists, keep) if k]
     bond_lists = [b for b, k in zip(bond_lists, keep) if k]
-    phi, temperature, rho = phi[keep], temperature[keep], rho[keep]
-    br = frozenset(branches)
+    return segment_lists, bond_lists, kab, phi[keep], temperature[keep], rho[keep]
 
-    def item(par, kv, ph, t, r):
-        g = jax_params(segment_lists, bond_lists, kv, ph, par, IDENT_NZ)
-        return jnp.concatenate([x.reshape(len(t), -1) for x in jgc.gc_derivatives(
-            g, t, r, branches=br)], 1)
 
-    want = jax.jit(jax.jacfwd(item, argnums=(0, 1, 2)))(
-        parameter, kab, phi, temperature, rho)
+def regime_jacobians(regimes, parameter=PARAMETER_NZ):
+    """The port's Jacobians of the derivative set in the segment parameters
+    ``(B, 6, S, 8)``, the k_ab values ``(B, 6, R)`` and phi ``(B, 6, B, 2)``
+    on the states of the named regimes, with the segment table
+    ``parameter`` (default: the table without epsilon_k = 0 segments), and
+    JAX's ``jacfwd`` of the same (vendored)."""
+    segment_lists, bond_lists, kab, phi, temperature, rho = regime_states(regimes)
+    key = "jac_" + "_".join(regimes)
+    ref = vendored("gc_eos", exact={f"{key}_parameter": parameter, f"{key}_phi": phi,
+                                    f"{key}_t": temperature, f"{key}_rho": rho})
     got = port_jacobians(segment_lists, bond_lists, parameter, kab, phi, temperature, rho)
-    return got, want
+    return got, tuple(ref[f"{key}_{w}"] for w in ("jpar", "jkab", "jphi"))
+
+
+def jax_reference():
+    """JAX's gc derivative set and ``precompute_gc`` leaves on
+    :func:`gc_states`, and JAX's ``jacfwd`` of the derivative set on the
+    states of each regime held in this file, ``test_torch_gc_eos_self``,
+    ``test_torch_gc_eos_cross`` and ``test_torch_gc_eos_induced``, each under
+    its phi branch set (the induced one on the table without IA's dipole)."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import gc_pcsaft as jgc
+    from test_torch_gc_eos_induced import induced_parameter
+
+    segment_lists, bond_lists, kab, phi, temperature, rho, _ = gc_states()
+
+    @jax.jit
+    def ref(g, temperature, rho):
+        out = jgc.gc_derivatives(g, temperature, rho)
+        pre = jax.vmap(jgc.precompute_gc, in_axes=(jgc._GC_BATCH_AXES, 0))(g, temperature)
+        return out, pre
+
+    out, pre = ref(jax_params(segment_lists, bond_lists, kab, phi), temperature, rho)
+    rec = {"kab": kab, "phi": phi, "t": temperature, "rho": rho,
+           **dict(zip(DERIVATIVES, out)), **flat("pre", pre)}
+    for regimes, branches, parameter in ((("none", "dipolar"), {"dipole"}, PARAMETER_NZ),
+                                         (("self",), {"self"}, PARAMETER_NZ),
+                                         (("cross",), {"cross"}, PARAMETER_NZ),
+                                         (("induced",), {"induced"}, induced_parameter())):
+        seg, bonds, kv0, ph0, t0, r0 = regime_states(regimes)
+        br = frozenset(branches)
+
+        def item(par, kv, ph, t, r):
+            g = jax_params(seg, bonds, kv, ph, par, IDENT_NZ)
+            return jnp.concatenate([x.reshape(len(t), -1) for x in jgc.gc_derivatives(
+                g, t, r, branches=br)], 1)
+
+        key = "jac_" + "_".join(regimes)
+        want = jax.jit(jax.jacfwd(item, argnums=(0, 1, 2)))(parameter, kv0, ph0, t0, r0)
+        rec.update({f"{key}_parameter": parameter, f"{key}_phi": ph0, f"{key}_t": t0,
+                    f"{key}_rho": r0, f"{key}_jpar": want[0], f"{key}_jkab": want[1],
+                    f"{key}_jphi": want[2]})
+    return rec
+
+
+DERIVATIVES = ("A", "p", "mu", "v")
 
 
 def port_jacobians(segment_lists, bond_lists, parameter, kab, phi, temperature, rho):
@@ -195,23 +242,17 @@ def assert_jacobians_match(got, want, j):
 
 @pytest.fixture(scope="module")
 def states():
-    """(inputs, port (A, p, mu, v), JAX (A, p, mu, v), JAX GcPre leaves)."""
+    """(inputs, port (A, p, mu, v), JAX (A, p, mu, v), JAX GcPre leaves),
+    JAX's vendored."""
     segment_lists, bond_lists, kab, phi, temperature, rho, _ = gc_states()
     with torch.no_grad():
         port = gc.gc_derivatives(port_params(segment_lists, bond_lists, kab, phi),
                                  _t(temperature), _t(rho))
-    jp = jax_params(segment_lists, bond_lists, kab, phi)
-
-    @jax.jit
-    def ref(g, temperature, rho):
-        out = jgc.gc_derivatives(g, temperature, rho)
-        pre = jax.vmap(jgc.precompute_gc, in_axes=(jgc._GC_BATCH_AXES, 0))(g, temperature)
-        return out, pre
-
-    out, pre = ref(jp, temperature, rho)
+    ref = vendored("gc_eos", exact={"kab": kab, "phi": phi, "t": temperature, "rho": rho})
+    pre = unflat(ref, "pre")
+    pre.dip = unflat(ref, "pre_dip")
     return ((segment_lists, bond_lists, kab, phi, temperature, rho),
-            tuple(x.numpy() for x in port), tuple(np.asarray(x) for x in out),
-            jax.tree_util.tree_map(np.asarray, pre))
+            tuple(x.numpy() for x in port), tuple(ref[k] for k in DERIVATIVES), pre)
 
 
 def test_every_regime_is_present(states):
@@ -373,7 +414,7 @@ def test_zero_epsilon_segment_gradients():
 
 @pytest.fixture(scope="module")
 def jacobians():
-    return regime_jacobians(("none", "dipolar"), {"dipole"})
+    return regime_jacobians(("none", "dipolar"))
 
 
 @pytest.mark.parametrize("j", range(len(OUTPUTS)), ids=OUTPUTS)

@@ -5,10 +5,11 @@ package.
 The induced-association rows of ``test_torch_gc_eos.gc_states`` go through
 the port's ``gc_derivatives`` under autograd and through JAX's ``jacfwd`` of
 ``assemble`` -> ``precompute_gc`` -> ``pressure_set`` in one jitted
-function of one shape.  The table here gives IA no dipole moment, so that
-JAX compiles the induced branch alone (with the dipole it compiles for 37 s
-on a CPU, too long for one file); the dipole term's Jacobians on IA rows
-are held to JAX in ``test_torch_gc_eos.py``.
+function of one shape (vendored in ``tests/golden/torch_gc_eos_jax.npz``
+by ``tools/gen_port_fixtures.py``).  The table here gives IA no dipole
+moment, so that JAX compiles the induced branch alone (with the dipole it
+compiles for 37 s on a CPU); the dipole term's Jacobians on IA rows are
+held to JAX in ``test_torch_gc_eos.py``.
 """
 
 import pytest
@@ -18,11 +19,16 @@ from test_torch_gc_eos import (
 )
 
 
-@pytest.fixture(scope="module")
-def jacobians():
+def induced_parameter():
+    """The table without epsilon_k = 0 segments, with IA's dipole zeroed."""
     parameter = PARAMETER_NZ.copy()
     parameter[IDENT_NZ.index("IA"), COLUMNS.index("mu")] = 0.0
-    return regime_jacobians(("induced",), {"induced"}, parameter)
+    return parameter
+
+
+@pytest.fixture(scope="module")
+def jacobians():
+    return regime_jacobians(("induced",), induced_parameter())
 
 
 @pytest.mark.parametrize("j", range(len(OUTPUTS)), ids=OUTPUTS)

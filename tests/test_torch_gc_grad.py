@@ -13,19 +13,17 @@ The port runs on the whole sauer2014 table.  JAX's epsilon_k derivatives
 are NaN on any table that holds an epsilon_k = 0 segment (>C<), so the
 reference runs on the table of the segments these molecules use, which
 gives the same parameters; the port's gradients in every other segment
-must be exactly zero.
+must be exactly zero.  JAX compiles the Jacobians for about 35 s on a CPU,
+so ``tools/gen_port_fixtures.py`` writes them, with the port's densities
+they were taken at, to ``tests/golden/torch_gc_grad_jax.npz``.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import gc_pcsaft as jgc
-from feos_tpu.ops.derivatives import pressure_set as jpressure_set
-from feos_tpu.units import REDUCED_TO_PA_PER_KT
+from _torch_golden import vendored
 from test_torch_gc_eos import IDENT, PARAMETER, assert_rows_close, parameter_tuple
 
 BUBBLE = {"bubble": True, "dew": False}
@@ -44,6 +42,12 @@ X1 = np.array([0.5, 0.5, 0.5, 0.5, 0.4, 0.6])
 def _identity(par, kv, phi, temperature, r_inc, r_bulk):
     """The bubble/dew identity in Pa at (r_inc, r_bulk), per row, on the
     table of the USED segments."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import gc_pcsaft as jgc
+    from feos_tpu.ops.derivatives import pressure_set as jpressure_set
+    from feos_tpu.units import REDUCED_TO_PA_PER_KT
+
     g = jgc.assemble(USED, parameter_tuple(par), SEGMENTS, BONDS,
                      [(a, b, k) for (a, b, _), k in zip(RECORDS, kv)], phi)
     br = frozenset({"cross"})
@@ -82,12 +86,19 @@ def _port(name):
     return p.detach().numpy(), grads, np.exp(state[:, :2]), z * np.exp(state[:, 2:3])
 
 
-@pytest.fixture(scope="module")
-def solved():
-    """Per direction, the port's (p, gradients) and the reference identity's
-    value and Jacobians at the port's densities, in one jitted call."""
-    port = {name: _port(name) for name in BUBBLE}
-    rows = [port[name][2:] for name in BUBBLE]
+def _densities(port):
+    """The port's (rho_inc, rho_bulk) of both directions, stacked."""
+    return {"r_inc": np.concatenate([port[name][2] for name in BUBBLE]),
+            "r_bulk": np.concatenate([port[name][3] for name in BUBBLE])}
+
+
+def jax_reference():
+    """The reference identity's value and Jacobians at the port's densities
+    of both directions, in one jitted call."""
+    import jax
+    import jax.numpy as jnp
+
+    at = _densities({name: _port(name) for name in BUBBLE})
     used = [IDENT.index(s) for s in USED]
     B = len(X1)
 
@@ -97,11 +108,23 @@ def solved():
         return out, out
 
     ref = jax.jit(jax.jacfwd(with_value, argnums=(0, 1, 2), has_aux=True))
-    (j_par, j_kab, j_phi), val = jax.tree_util.tree_map(np.asarray, ref(
-        PARAMETER[used], np.array([k for *_, k in RECORDS]), PHI,
-        np.concatenate([r[0] for r in rows]), np.concatenate([r[1] for r in rows])))
-    return {name: (port[name][:2], (val[i * B:(i + 1) * B], j_par[i * B:(i + 1) * B],
-                                    j_kab[i * B:(i + 1) * B], j_phi[i * B:(i + 1) * B]))
+    (j_par, j_kab, j_phi), val = ref(PARAMETER[used], np.array([k for *_, k in RECORDS]), PHI,
+                                     at["r_inc"], at["r_bulk"])
+    return {"parameter": PARAMETER[used], "phi": PHI, "t": TEMPERATURE, "x1": X1, **at,
+            "val": val, "j_par": j_par, "j_kab": j_kab, "j_phi": j_phi}
+
+
+@pytest.fixture(scope="module")
+def solved():
+    """Per direction, the port's (p, gradients) and the reference identity's
+    value and Jacobians at the port's densities (vendored)."""
+    port = {name: _port(name) for name in BUBBLE}
+    used = [IDENT.index(s) for s in USED]
+    ref = vendored("gc_grad", exact={"parameter": PARAMETER[used], "phi": PHI,
+                                     "t": TEMPERATURE, "x1": X1}, close=_densities(port))
+    B = len(X1)
+    return {name: (port[name][:2], tuple(ref[k][i * B:(i + 1) * B]
+                                         for k in ("val", "j_par", "j_kab", "j_phi")))
             for i, name in enumerate(BUBBLE)}, used
 
 

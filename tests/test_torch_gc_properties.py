@@ -5,6 +5,9 @@ polar, self-, cross- and induced-associating) at the golden density and at
 a tenth of it: JAX assembles their parameters (tests/conftest.py's
 ``golden_gc_eos``), ``GcParams.from_numpy`` carries them into the port, and
 every field of the port's ``gc_properties`` is held to JAX's at 1e-10.
+JAX's ``gc_properties`` compiles for about 20 s on a CPU, so
+``tools/gen_port_fixtures.py`` writes its fields, with the parameters JAX
+assembled, to ``tests/golden/torch_gc_properties_jax.npz``.
 s_res and c_v_res against central differences in T, the ideal-gas limit,
 the k_ab and phi gradients against central differences and the facade hold
 the port on its own.
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.properties import gc_properties as jax_gc_properties
+from _torch_golden import unflat, vendored
 from test_torch_gc_eos import GOLDEN, IDENT, PARAMETER, _t, parameter_tuple
 from feos_tpu_torch.units import RGAS
 from test_torch_mix_properties import FIELDS, _fd_temperature
@@ -37,19 +40,34 @@ def golden_model(phi=None, records=None):
                           GOLDEN["bond_lists"] * 2, records, phi, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def case(golden_gc_eos):
-    eos, _ = golden_gc_eos
+def jax_reference():
+    """The parameters JAX assembles for the golden topologies
+    (``tests/conftest.py``'s ``golden_gc_eos``), and JAX's ``gc_properties``
+    on them at :func:`_state`."""
+    from _torch_golden import flat
+    from feos_tpu.models.gc_pcsaft import GcPcSaftMix
+    from feos_tpu.properties import gc_properties as jax_gc_properties
+
+    eos = GcPcSaftMix(IDENT, parameter_tuple(PARAMETER), GOLDEN["segment_lists"],
+                      GOLDEN["bond_lists"], [tuple(k) for k in GOLDEN["kab_list"]],
+                      np.array(GOLDEN["phi"]))
     temperature, rho = _state()
-    params = ft.GcParams.from_numpy(eos.params, device="cpu")
+    ref = jax_gc_properties(eos.params, temperature[:N], rho[:N]), \
+        jax_gc_properties(eos.params, temperature[N:], rho[N:])
+    return {"t": temperature, "rho": rho, **flat("params", eos.params),
+            **{f: np.concatenate([np.asarray(getattr(r, f)) for r in ref]) for f in FIELDS}}
+
+
+@pytest.fixture(scope="module")
+def case():
+    temperature, rho = _state()
+    ref = vendored("gc_properties", exact={"t": temperature, "rho": rho})
+    params = ft.GcParams.from_numpy(unflat(ref, "params"), device="cpu")
     params = ft.GcParams(*(torch.cat([x, x]) if x.dim() > 1 and x.shape[0] == N else x
                            for x in params))
     with torch.no_grad():
         port = ft.gc_properties(params, _t(temperature), _t(rho))
-    ref = jax_gc_properties(eos.params, temperature[:N], rho[:N]), \
-        jax_gc_properties(eos.params, temperature[N:], rho[N:])
-    return ({f: getattr(port, f).numpy() for f in FIELDS},
-            {f: np.concatenate([np.asarray(getattr(r, f)) for r in ref]) for f in FIELDS})
+    return ({f: getattr(port, f).numpy() for f in FIELDS}, {f: ref[f] for f in FIELDS})
 
 
 @pytest.mark.parametrize("field", FIELDS)

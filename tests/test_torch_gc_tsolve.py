@@ -12,18 +12,20 @@ and ``GcParams.from_numpy`` carries into the port (the round trip at 1e-9,
 the vapor composition at 1e-8, equal masks); JAX's dew solver would add
 about 15 s of compile to this file, and the dew temperature runs the same
 code as the mixture's, which test_torch_mix_tsolve.py holds to JAX's
-``dew_point``.  Gradients in k_ab, the
-segment parameters and phi are held to central differences and to the
+``dew_point``.  JAX's bubble solve compiles for about 25 s on a CPU, so
+``tools/gen_port_fixtures.py`` writes its values, with the parameters JAX
+assembled and the port's targets and temperatures it ran at, to
+``tests/golden/torch_gc_tsolve_jax.npz``.  Gradients in k_ab, the segment
+parameters and phi are held to central differences and to the
 implicit-function identity at the re-attached state.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import gc_pcsaft as jgc
+from _torch_golden import flat, unflat, vendored
 from feos_tpu_torch.models import gc_pcsaft as gc
 from test_torch_gc_eos import GOLDEN, IDENT, PARAMETER, _t, parameter_tuple
 
@@ -56,11 +58,9 @@ def solve_t(eos, name, pressure, **kw):
     return getattr(eos, f"{name}_point_t")(pressure, X1, 1.05 * T, **kw)
 
 
-@pytest.fixture(scope="module")
-def solved():
+def _port():
     """Per direction: the targets, the port's (T, nans, y, stats) and its
-    gradients of sum T in the segment parameters, k_ab and phi; JAX's
-    bubble solve at the port's butane/propane bubble temperatures."""
+    gradients of sum T in the segment parameters, k_ab and phi."""
     port = {}
     for name in BUBBLE:
         p = targets(name)
@@ -70,14 +70,39 @@ def solved():
         t.sum().backward()
         port[name] = (p.numpy(), t.detach().numpy(), nans.numpy(), y.numpy(), stats,
                       [x.grad.numpy() for x in (eos.parameter, eos.kab, eos.phi)])
+    return port
+
+
+OUTPUTS = ("p", "nans", "y")
+
+
+def jax_reference():
+    """JAX's bubble solve at the port's butane/propane bubble temperatures,
+    on the parameters JAX assembles for those rows."""
+    import jax
+    from feos_tpu.models import gc_pcsaft as jgc
+
+    port = _port()
+    at = {"t_b": port["bubble"][1][:2], "p_b": port["bubble"][0][:2]}
     j_params = jgc.assemble(IDENT, parameter_tuple(PARAMETER), SEGMENTS[:2], BONDS[:2],
                             RECORDS, PHI[:2])
     br = jgc.static_branches_gc(j_params)
     ref = jax.jit(lambda params, t, p: jgc.gc_incipient_property(
         params, t, X1[:2], p, bubble=True, branches=br, full_output=True))(
-            j_params, port["bubble"][1][:2], port["bubble"][0][:2])
-    ref = jax.tree_util.tree_map(np.asarray, ref)
-    return port, ref, j_params
+            j_params, at["t_b"], at["p_b"])
+    return {"phi": PHI[:2], "x1": X1[:2], **at, **flat("params", j_params),
+            **dict(zip(OUTPUTS, ref))}
+
+
+@pytest.fixture(scope="module")
+def solved():
+    """The port's results (:func:`_port`); JAX's bubble solve at the port's
+    butane/propane bubble temperatures and the parameters JAX assembled
+    (vendored)."""
+    port = _port()
+    ref = vendored("gc_tsolve", exact={"phi": PHI[:2], "x1": X1[:2]},
+                   close={"t_b": port["bubble"][1][:2], "p_b": port["bubble"][0][:2]})
+    return port, tuple(ref[k] for k in OUTPUTS), unflat(ref, "params")
 
 
 @pytest.mark.parametrize("name", list(BUBBLE))

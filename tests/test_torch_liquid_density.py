@@ -5,21 +5,21 @@
 gradients against the JAX package's shipped functions and against JAX's f64
 gradient of the same re-attachment identity at the port's densities; central
 finite differences; the reference's 6-row grid against the C++ oracle.  The
-JAX side runs once, in one jitted function of one fixed shape.
+JAX side runs in one jitted function of one fixed shape, which compiles for
+about 45 s on a CPU, so ``tools/gen_port_fixtures.py`` writes its values,
+with the port's densities it was evaluated at, to
+``tests/golden/torch_liquid_density_jax.npz``.
 """
 
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_golden import vendored
 from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_pure as jpure
-from feos_tpu.solvers.vle import npt_density as jax_npt_density
-from feos_tpu.units import KMOL_M3_TO_REDUCED, PA_PER_KT_TO_REDUCED
+from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, PA_PER_KT_TO_REDUCED
 
 # the reference's 6-row parameter grid and README example
 # (tests/test_pcsaft_pure.py: REFERENCE_GRID, README_PARAMS)
@@ -63,9 +63,9 @@ def _port(fn, params, *args):
     return nans.numpy(), rho.detach().numpy(), p.grad.numpy()
 
 
-@pytest.fixture(scope="module")
-def case():
-    """Inputs, the port's results and, from one jit, JAX's."""
+def _port_case():
+    """The port's results, and the states JAX is evaluated at: the inputs
+    and the port's solved densities, sanitised as the port sanitises them."""
     params, temperature, pressure = _inputs()
     p_red = pressure / temperature * PA_PER_KT_TO_REDUCED
     port = {
@@ -80,9 +80,25 @@ def case():
     rho_npt = np.where(port["npt"][0], port["npt"][1], 1e-3)
     rho_v = np.where(ok_vle, rho_v.numpy(), 1e-5)
     rho_l = np.where(ok_vle, rho_l.numpy(), 1e-3)
+    inputs = {"params": params, "temperature": temperature, "pressure": pressure,
+              "p_red": p_red, "ok_npt": port["npt"][0], "ok_vle": ok_vle.numpy()}
+    states = {"rho_npt": rho_npt, "rho_v": rho_v, "rho_l": rho_l}
+    return port, inputs, states
+
+
+def jax_reference():
+    """JAX's shipped liquid densities with gradients, its f64 identity
+    gradients at the port's densities and its f64 ``npt_density``."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_pure as jpure
+    from feos_tpu.solvers.vle import npt_density as jax_npt_density
+    from feos_tpu.units import KMOL_M3_TO_REDUCED
+
+    _, inputs, states = _port_case()
 
     @jax.jit
-    def reference(par, t, pres, pr, r_npt, ok_npt, rv, rl, ok_eq):
+    def reference(par, t, pres, pr, ok_npt, ok_eq, r_npt, rv, rl):
         def shipped(fn, *args):
             def loss(q):
                 nans, rho = fn(q, *args)
@@ -116,11 +132,24 @@ def case():
                 q, tt, x, liquid=True, mixed_precision=False))(pp, t, pr),
         }
 
-    ref = reference(*(jnp.asarray(x) for x in (
-        params, temperature, pressure, p_red, rho_npt, port["npt"][0],
-        rho_v, rho_l, ok_vle.numpy(),
-    )))
-    ref = jax.tree_util.tree_map(np.asarray, ref)
+    ref = reference(*(jnp.asarray(x) for x in (*inputs.values(), *states.values())))
+    out = {f"{kind}_{k}": v for kind in KINDS for k, v in zip(("nans", "rho", "grad"), ref[kind])}
+    out.update({f"{kind}_identity": ref[f"{kind}_identity"] for kind in KINDS})
+    out["npt_rho"], out["npt_ok"] = ref["npt"]
+    return {**inputs, **states, **out}
+
+
+KINDS = ["liquid", "equilibrium"]
+
+
+@pytest.fixture(scope="module")
+def case():
+    """The port's results and JAX's (vendored)."""
+    port, inputs, states = _port_case()
+    v = vendored("liquid_density", exact=inputs, close=states)
+    ref = {kind: tuple(v[f"{kind}_{k}"] for k in ("nans", "rho", "grad")) for kind in KINDS}
+    ref.update({f"{kind}_identity": v[f"{kind}_identity"] for kind in KINDS})
+    ref["npt"] = v["npt_rho"], v["npt_ok"]
     return port, ref
 
 
@@ -155,9 +184,6 @@ def test_npt_density_branches_at_vapor_pressure():
 
 
 # -- liquid_density and equilibrium_liquid_density ----------------------------
-
-
-KINDS = ["liquid", "equilibrium"]
 
 
 @pytest.mark.parametrize("kind", KINDS)

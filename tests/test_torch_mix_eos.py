@@ -8,24 +8,23 @@ function of one shape.  The Jacobians of the derivative set in the
 parameters and kij are held to JAX's ``jacfwd`` by regime: the rows without
 association here, the self- and induced-associating rows in
 ``test_torch_mix_eos_self.py`` and ``test_torch_mix_eos_induced.py``, and the
-cross-associating rows in ``test_torch_mix_jax_grad.py`` (JAX compiles each
-branch set for 15-40 s on a CPU, too long for one file).  The last test
-holds the port free of JAX imports.
+cross-associating rows in ``test_torch_mix_jax_grad.py``.  JAX compiles each
+branch set for 15-40 s on a CPU, so ``tools/gen_port_fixtures.py`` writes
+JAX's values for all three files to ``tests/golden/torch_mix_eos_jax.npz``.
+The last test holds the port free of JAX imports.
 """
 
 import json
 import re
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
+from _torch_golden import flat, unflat, vendored
 from feos_tpu.models import pcsaft_mix as jmix
-from feos_tpu.ops.derivatives import pressure_set as jpressure_set
 from feos_tpu_torch.models import pcsaft_mix as mix
 
 REPO = Path(__file__).resolve().parent.parent
@@ -99,6 +98,9 @@ def regime_rows(*names):
 def jax_derivative_set(branches):
     """Per state, JAX's ``[A, p~, mu_0, mu_1, v_0, v_1]`` as a function of
     the ``(2, 8)`` parameters, ``(2,)`` kij, T and the ``(2,)`` density."""
+    import jax.numpy as jnp
+    from feos_tpu.ops.derivatives import pressure_set as jpressure_set
+
     def item(p, k, t, r):
         pre = jmix.precompute_mix(jmix.MixParams.from_array(p), k[0], k[1], t)
         a, pt, mu, v = jpressure_set(lambda x: jmix.phi_mix_pre(pre, x, branches=branches), r)
@@ -106,16 +108,61 @@ def jax_derivative_set(branches):
     return item
 
 
-def regime_jacobians(regimes, branches, keep=None):
-    """The port's and JAX's Jacobians (:func:`port_jacobians`) on the states
-    of the named regimes (and of ``keep``, a mask over them), JAX's with
-    one jitted ``jacfwd`` under the phi branch set ``branches``."""
+STATE_KEYS = ("params", "kij", "t", "rho")
+
+
+def regime_states(regimes, keep=None):
+    """The states of :func:`_mix_states` in the named regimes (and of
+    ``keep``, a mask over them)."""
     args = tuple(x[regime_rows(*regimes)] for x in _mix_states())
     if keep is not None:
         args = tuple(x[keep(*args)] for x in args)
-    item = jax_derivative_set(frozenset(branches))
-    want = jax.jit(jax.vmap(jax.jacfwd(item, argnums=(0, 1))))(*args)
-    return port_jacobians(*args), want
+    return args
+
+
+def regime_jacobians(regimes, keep=None):
+    """The port's Jacobians (:func:`port_jacobians`) on the states of
+    :func:`regime_states`, and JAX's ``jacfwd`` on them (vendored)."""
+    args = regime_states(regimes, keep)
+    key = "jac_" + "_".join(regimes)
+    ref = vendored("mix_eos", exact={f"{key}_{k}": x for k, x in zip(STATE_KEYS, args)})
+    return port_jacobians(*args), (ref[f"{key}_jpar"], ref[f"{key}_jkij"])
+
+
+def jax_reference():
+    """JAX's derivative set and ``precompute_mix`` leaves on
+    :func:`_mix_states`, and JAX's ``jacfwd`` of the derivative set on the
+    states of each regime set held in this file, ``test_torch_mix_eos_self``
+    and ``test_torch_mix_eos_induced``, each under its phi branch set."""
+    import jax
+    from test_torch_mix_eos_induced import _site_fractions_reach_root
+
+    params, kij, temperature, rho = _mix_states()
+
+    @jax.jit
+    def ref(params, kij, temperature, rho):
+        out = jmix.derivatives(params, kij, temperature, rho,
+                               branches=jmix.static_branches(params))
+        pre = jax.vmap(jmix.precompute_mix)(
+            jmix.MixParams.from_array(params), kij[:, 0], kij[:, 1], temperature)
+        return out, pre
+
+    out, pre = ref(params, kij, temperature, rho)
+    rec = {"params": params, "kij": kij, "t": temperature, "rho": rho,
+           **dict(zip(DERIVATIVES, out)), **flat("pre", pre)}
+    for regimes, branches, keep in ((("none", "dipolar"), {"dipole"}, None),
+                                    (("self",), {"self"}, None),
+                                    (("induced",), {"induced"}, _site_fractions_reach_root)):
+        args = regime_states(regimes, keep)
+        item = jax_derivative_set(frozenset(branches))
+        j_par, j_kij = jax.jit(jax.vmap(jax.jacfwd(item, argnums=(0, 1))))(*args)
+        key = "jac_" + "_".join(regimes)
+        rec.update({f"{key}_{k}": x for k, x in zip(STATE_KEYS, args)})
+        rec[f"{key}_jpar"], rec[f"{key}_jkij"] = j_par, j_kij
+    return rec
+
+
+DERIVATIVES = ("A", "p", "mu", "v")
 
 
 def port_jacobians(params, kij, temperature, rho):
@@ -146,23 +193,17 @@ def assert_jacobians_match(got, want, j):
 
 @pytest.fixture(scope="module")
 def states():
-    """(inputs, port (A, p, mu, v), JAX (A, p, mu, v), JAX MixPre leaves)."""
+    """(inputs, port (A, p, mu, v), JAX (A, p, mu, v), JAX MixPre leaves),
+    JAX's vendored."""
     params, kij, temperature, rho = _mix_states()
     with torch.no_grad():
         port = mix.derivatives(_t(params), _t(kij), _t(temperature), _t(rho))
     port = tuple(x.numpy() for x in port)
-    br = jmix.static_branches(params)
-
-    @jax.jit
-    def ref(params, kij, temperature, rho):
-        out = jmix.derivatives(params, kij, temperature, rho, branches=br)
-        pre = jax.vmap(jmix.precompute_mix)(
-            jmix.MixParams.from_array(params), kij[:, 0], kij[:, 1], temperature)
-        return out, pre
-
-    out, pre = ref(params, kij, temperature, rho)
-    return ((params, kij, temperature, rho), port,
-            tuple(np.asarray(x) for x in out), jax.tree_util.tree_map(np.asarray, pre))
+    ref = vendored("mix_eos", exact={"params": params, "kij": kij, "t": temperature,
+                                     "rho": rho})
+    pre = unflat(ref, "pre")
+    pre.dip = unflat(ref, "pre_dip")
+    return ((params, kij, temperature, rho), port, tuple(ref[k] for k in DERIVATIVES), pre)
 
 
 def test_every_regime_is_present(states):
@@ -295,7 +336,7 @@ def test_parameter_gradients_are_finite_in_every_regime(states):
 
 @pytest.fixture(scope="module")
 def jacobians():
-    return regime_jacobians(("none", "dipolar"), {"dipole"})
+    return regime_jacobians(("none", "dipolar"))
 
 
 @pytest.mark.parametrize("j", range(len(OUTPUTS)), ids=OUTPUTS)

@@ -4,7 +4,8 @@ the induced-association regime, against the JAX package.
 The induced rows of ``test_torch_mix_eos._mix_states`` (one self-associating
 component, one with B sites only) go through the port's ``derivatives``
 under autograd and through JAX's ``jacfwd`` of ``pressure_set`` in one
-jitted function of one shape.
+jitted function of one shape (vendored in ``tests/golden/torch_mix_eos_jax.npz``
+by ``tools/gen_port_fixtures.py``).
 """
 
 import numpy as np
@@ -32,7 +33,7 @@ def _site_fractions_reach_root(params, kij, temperature, rho):
 
 @pytest.fixture(scope="module")
 def jacobians():
-    return regime_jacobians(("induced",), {"induced"}, keep=_site_fractions_reach_root)
+    return regime_jacobians(("induced",), keep=_site_fractions_reach_root)
 
 
 @pytest.mark.parametrize("j", range(len(OUTPUTS)), ids=OUTPUTS)

@@ -3,7 +3,8 @@ one self-associating component, against the JAX package.
 
 The self-association rows of ``test_torch_mix_eos._mix_states`` go through
 the port's ``derivatives`` under autograd and through JAX's ``jacfwd`` of
-``pressure_set`` in one jitted function of one shape.
+``pressure_set`` in one jitted function of one shape (vendored in
+``tests/golden/torch_mix_eos_jax.npz`` by ``tools/gen_port_fixtures.py``).
 """
 
 import pytest
@@ -13,7 +14,7 @@ from test_torch_mix_eos import OUTPUTS, assert_jacobians_match, regime_jacobians
 
 @pytest.fixture(scope="module")
 def jacobians():
-    return regime_jacobians(("self",), {"self"})
+    return regime_jacobians(("self",))
 
 
 @pytest.mark.parametrize("j", range(len(OUTPUTS)), ids=OUTPUTS)

@@ -11,7 +11,10 @@ port on its own, as tests/test_properties.py:73-168 holds JAX: s_res and
 c_v_res against central differences in T, Clausius-Clapeyron and
 isofugacity at solved pure equilibria, c_p_res along an isobar, an
 identical-species binary against the pure fluid, the ideal-gas limit.
-The gc properties are in test_torch_gc_properties.py.
+JAX's ``mix_properties`` compiles for about 30 s on a CPU, so
+``tools/gen_port_fixtures.py`` writes its fields to
+``tests/golden/torch_mix_properties_jax.npz``.  The gc properties are in
+test_torch_gc_properties.py.
 """
 
 import json
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.properties import mix_properties as jax_mix_properties
+from _torch_golden import vendored
 from feos_tpu_torch.units import ANGSTROM, KB, KMOL_M3_TO_REDUCED, NAV, RGAS
 
 GOLDEN = json.loads((Path(__file__).resolve().parent / "golden" / "mix_helmholtz.json")
@@ -46,14 +49,25 @@ def _states():
     return params, kij, np.full(2 * n, GOLDEN["temperature"]), density
 
 
+STATE_KEYS = ("params", "kij", "t", "rho")
+
+
+def jax_reference():
+    """JAX's ``mix_properties`` on :func:`_states`."""
+    from feos_tpu.properties import mix_properties as jax_mix_properties
+
+    states = _states()
+    ref = jax_mix_properties(*states)
+    return {**dict(zip(STATE_KEYS, states)), **{f: getattr(ref, f) for f in FIELDS}}
+
+
 @pytest.fixture(scope="module")
 def case():
     states = _states()
     with torch.no_grad():
         port = ft.mix_properties(*(_t(x) for x in states))
-    ref = jax_mix_properties(*states)
-    return ({f: getattr(port, f).numpy() for f in FIELDS},
-            {f: np.asarray(getattr(ref, f)) for f in FIELDS})
+    ref = vendored("mix_properties", exact=dict(zip(STATE_KEYS, states)))
+    return ({f: getattr(port, f).numpy() for f in FIELDS}, {f: ref[f] for f in FIELDS})
 
 
 @pytest.mark.parametrize("field", FIELDS)

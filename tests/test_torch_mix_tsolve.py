@@ -7,21 +7,20 @@ jit, JAX's ``bubble_point``/``dew_point`` solve at each temperature the port
 returns (the round trip to the target pressure at 1e-9, the incipient
 composition at 1e-8, equal masks), and ``jacfwd`` of JAX's f64 stationary
 identity at the port's densities gives dT/dtheta = -(dp/dtheta)/(dp/dT) in
-the parameters and kij.  The kij gradient against central differences and
-the implicit-function identity hold the port on its own.  Config 3 (cross
-association) is in test_torch_mix_tsolve_cross.py.
+the parameters and kij.  That jit compiles for about 40 s here, so
+``tools/gen_port_fixtures.py`` writes its values, with the port's
+temperatures and densities they were taken at, to
+``tests/golden/torch_mix_tsolve_jax.npz``.  The kij gradient against
+central differences and the implicit-function identity hold the port on its
+own.  Config 3 (cross association) is in test_torch_mix_tsolve_cross.py.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_mix as jmix
-from feos_tpu.ops.derivatives import pressure_set as jpressure_set
-from feos_tpu.units import REDUCED_TO_PA_PER_KT
+from _torch_golden import vendored
 from feos_tpu_torch.models import pcsaft_mix as mix
 
 # tests/test_tsolve.py: propane / n-butane (Gross & Sadowski 2001)
@@ -42,6 +41,11 @@ def _t(x):
 def _identity_pa(p, k, t, r_inc, r_bulk):
     """The stationary bubble/dew pressure identity in Pa at (r_inc, r_bulk)
     from JAX's f64 pieces, per row."""
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_mix as jmix
+    from feos_tpu.ops.derivatives import pressure_set as jpressure_set
+    from feos_tpu.units import REDUCED_TO_PA_PER_KT
+
     pre = jmix.precompute_mix(jmix.MixParams.from_array(p), k[0], k[1], t)
 
     def phi(x):
@@ -68,11 +72,9 @@ def _densities(name, t_star):
     return np.exp(state[:, :2]), z * np.exp(state[:, 2:3])
 
 
-@pytest.fixture(scope="module")
-def solved():
+def _port():
     """Per direction, the port's (T, nans, y, dT/dparams, dT/dkij, stats),
-    and JAX's pressure solves at the port's T and dp/d(params, kij, T) of
-    its identity at the port's densities."""
+    and its temperatures and densities, which JAX is evaluated at."""
     port, dens = {}, []
     for name, (fn, _) in DIRECTIONS.items():
         par, kij = _t(MIXP).requires_grad_(), _t(KIJ).requires_grad_()
@@ -82,6 +84,20 @@ def solved():
         port[name] = (t.detach(), nans.numpy(), y.numpy(), par.grad.numpy(),
                       kij.grad.numpy(), stats)
         dens.append(_densities(name, t.detach()))
+    at = {"t_b": port["bubble"][0].numpy(), "t_d": port["dew"][0].numpy(),
+          "r_inc": np.concatenate([d[0] for d in dens]),
+          "r_bulk": np.concatenate([d[1] for d in dens])}
+    return port, at
+
+
+def jax_reference():
+    """JAX's bubble and dew pressure solves at the port's temperatures, and
+    dp/d(params, kij, T) of its identity at the port's densities."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_mix as jmix
+
+    _, at = _port()
     br = jmix.static_branches(MIXP)
 
     @jax.jit
@@ -93,13 +109,27 @@ def solved():
             jnp.concatenate([t_b, t_d]), r_inc, r_bulk)
         return bub, dew, jac
 
-    ref = reference(port["bubble"][0].numpy(), port["dew"][0].numpy(),
-                    *(np.concatenate(x) for x in zip(*dens)))
-    bub, dew, (j_par, j_kij, j_t) = jax.tree_util.tree_map(np.asarray, ref)
+    bub, dew, jac = reference(*at.values())
+    return {"mixp": MIXP, "kij": KIJ, "x1": X1, "p_mix": P_MIX, **at,
+            **{f"bubble_{k}": x for k, x in zip(("p", "nans", "y"), bub)},
+            **{f"dew_{k}": x for k, x in zip(("p", "nans", "y"), dew)},
+            **dict(zip(("j_par", "j_kij", "j_t"), jac))}
+
+
+@pytest.fixture(scope="module")
+def solved():
+    """Per direction, the port's (T, nans, y, dT/dparams, dT/dkij, stats),
+    and JAX's pressure solves at the port's T and dp/d(params, kij, T) of
+    its identity at the port's densities (vendored)."""
+    port, at = _port()
+    ref = vendored("mix_tsolve", exact={"mixp": MIXP, "kij": KIJ, "x1": X1, "p_mix": P_MIX},
+                   close=at)
+    j_par, j_kij, j_t = ref["j_par"], ref["j_kij"], ref["j_t"]
     n = len(X1)
     dt = {name: (-j_par[sl] / j_t[sl, None, None], -j_kij[sl] / j_t[sl, None])
           for name, sl in (("bubble", slice(0, n)), ("dew", slice(n, 2 * n)))}
-    return port, {"bubble": bub, "dew": dew}, dt
+    return port, {name: tuple(ref[f"{name}_{k}"] for k in ("p", "nans", "y"))
+                  for name in DIRECTIONS}, dt
 
 
 @pytest.mark.parametrize("name", list(DIRECTIONS))

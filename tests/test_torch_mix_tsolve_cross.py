@@ -9,19 +9,18 @@ minute here, so JAX holds the result through ``jacfwd`` of its f64
 stationary identity at the port's densities, in one jit for both
 directions: the identity's value at the port's temperatures is the target
 pressure, and -(dp/dtheta)/(dp/dT) is the port's temperature gradient in
-kij and eps_AiBj.
+kij and eps_AiBj.  That jit compiles for about 45 s on a CPU, so
+``tools/gen_port_fixtures.py`` writes its values, with the port's
+temperatures and densities they were taken at, to
+``tests/golden/torch_mix_tsolve_cross_jax.npz``.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_mix as jmix
-from feos_tpu.ops.derivatives import pressure_set as jpressure_set
-from feos_tpu.units import REDUCED_TO_PA_PER_KT
+from _torch_golden import vendored
 
 CONFIG3 = np.tile([[1, 3.5, 150, 0, 0.02, 1500, 1, 1], [1, 3.5, 200, 0, 0.03, 2500, 1, 1]],
                   (4, 1, 1)).astype(float)
@@ -39,6 +38,11 @@ def _t(x):
 def _identity_pa(p, k, t, r_inc, r_bulk):
     """The stationary bubble/dew identity in Pa, per row, from JAX's f64
     pieces with the cross-association branch."""
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_mix as jmix
+    from feos_tpu.ops.derivatives import pressure_set as jpressure_set
+    from feos_tpu.units import REDUCED_TO_PA_PER_KT
+
     pre = jmix.precompute_mix(jmix.MixParams.from_array(p), k[0], k[1], t)
 
     def phi(x):
@@ -54,11 +58,9 @@ def _identity_pa(p, k, t, r_inc, r_bulk):
     return ident * t * REDUCED_TO_PA_PER_KT
 
 
-@pytest.fixture(scope="module")
-def solved():
+def _port():
     """Per direction: the targets, the port's (T, nans, dT/dparams,
-    dT/dkij) and its densities at T; then JAX's identity value and
-    Jacobians at them."""
+    dT/dkij) and its densities at T."""
     par, kij, x1 = _t(CONFIG3), _t(KIJ3), _t(X1)
     port, dens = {}, []
     for name, (fn_t, fn_p) in DIRECTIONS.items():
@@ -76,13 +78,34 @@ def solved():
                       k_in.grad.numpy(), p_back.numpy(), stats)
         u = state.numpy()
         dens.append((np.exp(u[:, :2]), np.stack([X1, 1.0 - X1], 1) * np.exp(u[:, 2:3])))
+    t = np.concatenate([port["bubble"][1], port["dew"][1]])
+    return port, {"t": t, "r_inc": np.concatenate([d[0] for d in dens]),
+                  "r_bulk": np.concatenate([d[1] for d in dens])}
+
+
+def jax_reference():
+    """JAX's identity value and its Jacobians in kij and T, both directions
+    stacked, at the port's temperatures and densities."""
+    import jax
+
+    _, at = _port()
     ref = jax.jit(jax.vmap(jax.jacfwd(lambda *a: (_identity_pa(*a),) * 2, argnums=(1, 2),
                                       has_aux=True)))
-    (j_kij, j_t), value = ref(
-        np.concatenate([CONFIG3, CONFIG3]), np.concatenate([KIJ3, KIJ3]),
-        np.concatenate([port["bubble"][1], port["dew"][1]]),
-        *(np.concatenate(x) for x in zip(*dens)))
-    j_kij, j_t, value = (np.asarray(x) for x in (j_kij, j_t, value))
+    (j_kij, j_t), value = ref(np.concatenate([CONFIG3, CONFIG3]),
+                              np.concatenate([KIJ3, KIJ3]), at["t"], at["r_inc"], at["r_bulk"])
+    return {"config3": CONFIG3, "kij3": KIJ3, "x1": X1, **at,
+            "value": value, "j_kij": j_kij, "j_t": j_t}
+
+
+@pytest.fixture(scope="module")
+def solved():
+    """Per direction: the port's results, and JAX's identity value and
+    dT/dkij = -(dp/dkij)/(dp/dT) at the port's temperatures and densities
+    (vendored)."""
+    port, at = _port()
+    ref = vendored("mix_tsolve_cross", exact={"config3": CONFIG3, "kij3": KIJ3, "x1": X1},
+                   close=at)
+    value, j_kij, j_t = ref["value"], ref["j_kij"], ref["j_t"]
     jax_out = {name: (value[sl], -j_kij[sl] / j_t[sl, None])
                for name, sl in (("bubble", slice(0, 4)), ("dew", slice(4, 8)))}
     return port, jax_out

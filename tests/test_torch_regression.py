@@ -7,20 +7,22 @@ gradient of the same identities at the port's densities (both targets), and
 against the JAX package's shipped ``pure_loss`` on the density target,
 whose tangents are f64 (the shipped vapor-pressure gradient rides f32
 tangents and is held at 1e-4 in test_torch_vapor_pressure.py).  The port's
-``fit_pure`` goes against JAX ``fit_pure`` on the density target.
+``fit_pure`` goes against JAX ``fit_pure`` on the density target.  JAX
+compiles these for about 35 s on a CPU, so ``tools/gen_port_fixtures.py``
+writes its values, with the data and the port's densities they were taken
+at, to ``tests/golden/torch_regression_jax.npz``.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
+from _torch_golden import vendored
 from feos_tpu import regression as jregression
-from feos_tpu.models import pcsaft_pure as jpure
-from feos_tpu.units import KMOL_M3_TO_REDUCED, PA_PER_KT_TO_REDUCED, REDUCED_TO_PA_PER_KT
 from feos_tpu_torch import regression
+from feos_tpu_torch.units import PA_PER_KT_TO_REDUCED
 
 README_PARAMS = np.array([1.5, 3.5, 250.0, 0.0, 0.03, 1500.0, 1.0, 1.0])
 START = README_PARAMS * np.array([1.01, 0.99, 1.01, 1.0, 1.01, 0.99, 1.0, 1.0])
@@ -44,8 +46,9 @@ def _data():
     return p_sat.numpy(), rho.numpy()
 
 
-@pytest.fixture(scope="module")
-def case():
+def _port_case():
+    """The data, the port's loss and gradient of each target at START, and
+    the port's solved densities at START, sanitised as the port does."""
     p_sat, rho_liq = _data()
     port = {}
     for name, vp_target in (("both", p_sat), ("density", None)):
@@ -64,6 +67,22 @@ def case():
     rv = np.where(ok, rho_v.numpy(), 1e-5)
     rl = np.where(ok, rho_l.numpy(), 1e-3)
     r_npt = np.where(ok_npt, r_npt.numpy(), 1e-3)
+    data = {"p_sat": p_sat, "rho_liq": rho_liq}
+    states = {"rv": rv, "rl": rl, "r_npt": r_npt}
+    masks = {"ok": ok.numpy(), "ok_npt": ok_npt.numpy()}
+    return port, data, states, masks
+
+
+def jax_reference():
+    """JAX's shipped density-target loss and gradient, its f64 identities'
+    loss and gradient (both targets) at the port's densities, and its
+    3-step ``fit_pure`` on the density target."""
+    import jax
+    from feos_tpu.models import pcsaft_pure as jpure
+    from feos_tpu.units import KMOL_M3_TO_REDUCED, PA_PER_KT_TO_REDUCED, REDUCED_TO_PA_PER_KT
+
+    _, data, states, masks = _port_case()
+    p_red = PRESSURE / T * PA_PER_KT_TO_REDUCED
 
     @jax.jit
     def reference(q, t, ps, rho_target, pres, pr, rv, rl, ok, r_npt, ok_npt):
@@ -84,11 +103,29 @@ def case():
         return shipped, (identity_loss(q), jax.jacfwd(identity_loss)(q))
 
     ref = reference(*(jnp.asarray(x) for x in (
-        START, T, p_sat, rho_liq, PRESSURE, p_red, rv, rl, ok.numpy(), r_npt,
-        ok_npt.numpy())))
-    ref = jax.tree_util.tree_map(np.asarray, ref)
-    return port, {"density": (float(ref[0][0]), ref[0][1]),
-                  "both": (float(ref[1][0]), ref[1][1])}
+        START, T, data["p_sat"], data["rho_liq"], PRESSURE, p_red, states["rv"],
+        states["rl"], masks["ok"], states["r_npt"], masks["ok_npt"])))
+    fit = jregression.fit_pure(START, jnp.asarray(T), rho_liq=jnp.asarray(data["rho_liq"]),
+                               pressure=jnp.asarray(PRESSURE), steps=3)
+    return {"start": START, "t": T, "pressure": PRESSURE, **data, **states, **masks,
+            "density_loss": ref[0][0], "density_grad": ref[0][1],
+            "both_loss": ref[1][0], "both_grad": ref[1][1],
+            "fit_parameters": fit.parameters, "fit_loss_history": fit.loss_history}
+
+
+def _reference(port_data, states=None, masks=None):
+    """The vendored file, after checking it against the inputs built now."""
+    return vendored("regression", exact={"start": START, "t": T, "pressure": PRESSURE,
+                                         **(masks or {})},
+                    close={**port_data, **(states or {})})
+
+
+@pytest.fixture(scope="module")
+def case():
+    port, data, states, masks = _port_case()
+    ref = _reference(data, states, masks)
+    return port, {target: (float(ref[f"{target}_loss"]), ref[f"{target}_grad"])
+                  for target in ("density", "both")}
 
 
 def test_masked_relative_sse_matches_jax():
@@ -139,12 +176,12 @@ def test_shared_parameters_sum_the_rows(case):
 
 @pytest.fixture(scope="module")
 def fits():
-    """Three Adam steps on the density target from START, in both packages."""
-    _, rho_liq = _data()
+    """Three Adam steps on the density target from START, in both packages
+    (JAX's vendored)."""
+    p_sat, rho_liq = _data()
     port = ft.fit_pure(START, _t(T), rho_liq=_t(rho_liq), pressure=_t(PRESSURE), steps=3)
-    ref = jregression.fit_pure(START, jnp.asarray(T), rho_liq=jnp.asarray(rho_liq),
-                               pressure=jnp.asarray(PRESSURE), steps=3)
-    return port, ref
+    ref = _reference({"p_sat": p_sat, "rho_liq": rho_liq})
+    return port, ft.FitResult(ref["fit_parameters"], ref["fit_loss_history"])
 
 
 def test_fit_matches_jax(fits):

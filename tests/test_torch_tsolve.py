@@ -3,19 +3,18 @@
 The JAX package's own case (tests/test_tsolve.py: an associating fluid on a
 1e4 to 2e6 Pa grid from 300 K) goes through the port's
 ``boiling_temperature`` and, in one jit, through JAX ``boiling_temperature``
-with the gradients of sum T_b in epsilon_k and in the pressures.  The
-round trip, finite differences and the inverse-function identity hold the
-port on its own.
+with the gradients of sum T_b in epsilon_k and in the pressures (compiled
+for about 40 s on a CPU, so ``tools/gen_port_fixtures.py`` writes JAX's
+values to ``tests/golden/torch_tsolve_jax.npz``).  The round trip, finite
+differences and the inverse-function identity hold the port on its own.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models import pcsaft_pure as jpure
+from _torch_golden import vendored
 from feos_tpu_torch.solvers import tsolve
 
 ROW = [1.5, 3.5, 250.0, 0, 0.03, 1500.0, 1, 1]
@@ -45,6 +44,18 @@ def case():
     nans, t = ft.boiling_temperature(_params_at(eps), p, T0, stats=stats)
     t.sum().backward()
     port = (nans.numpy(), t.detach().numpy(), float(eps.grad), p.grad.numpy(), stats)
+    ref = vendored("tsolve", exact={"pure": PURE, "p_grid": P_GRID, "t0": T0, "eps": EPS})
+    return port, tuple(ref[k] for k in OUTPUTS)
+
+
+OUTPUTS = ("nans", "t", "grad_eps", "grad_p")
+
+
+def jax_reference():
+    """JAX's (nans, T_b, d sum(T_b)/d eps, d sum(T_b)/d p)."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models import pcsaft_pure as jpure
 
     @jax.jit
     def reference(e, pres):
@@ -56,8 +67,8 @@ def case():
         (_, (nans, t)), (g_e, g_p) = jax.value_and_grad(loss, (0, 1), has_aux=True)(e, pres)
         return nans, t, g_e, g_p
 
-    ref = tuple(np.asarray(x) for x in reference(jnp.float64(EPS), jnp.asarray(P_GRID)))
-    return port, ref
+    out = reference(jnp.float64(EPS), jnp.asarray(P_GRID))
+    return {"pure": PURE, "p_grid": P_GRID, "t0": T0, "eps": EPS, **dict(zip(OUTPUTS, out))}
 
 
 def test_values_match_jax(case):

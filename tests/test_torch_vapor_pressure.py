@@ -1,21 +1,19 @@
 """The port's main path as a whole: vapor pressures and parameter gradients.
 
 README anchors, JAX ``value_and_grad(vapor_pressure)`` on a seeded batch
-(one jit of one fixed shape), central finite differences, and the failure
-mask.  Everything runs on CPU tensors, where ``phi_d2`` takes its plain
-version.
+(one jit of one fixed shape, which compiles for about 15 s on a CPU:
+``tools/gen_port_fixtures.py`` writes its values, with the port's densities
+it was taken at, to ``tests/golden/torch_vapor_pressure_jax.npz``), central
+finite differences, and the failure mask.  Everything runs on CPU tensors,
+where ``phi_d2`` takes its plain version.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import feos_tpu_torch as ft
-from feos_tpu.models.pcsaft_pure import PureParams as JaxParams
-from feos_tpu.models.pcsaft_pure import phi_pure as jax_phi_pure
-from feos_tpu.models.pcsaft_pure import vapor_pressure as jax_vapor_pressure
+from _torch_golden import vendored
 
 README_PARAMS = [1.5, 3.5, 250.0, 0.0, 0.03, 1500.0, 1.0, 1.0]
 README_T = [250.0, 300.0, 350.0, 400.0, 450.0]
@@ -52,11 +50,9 @@ def test_readme_gradient(readme):
     np.testing.assert_allclose(grad, README_GRAD, rtol=5e-4)
 
 
-@pytest.fixture(scope="module")
-def batch():
-    """A seeded 64-row batch through the port and, in one jit, through JAX:
-    ``value_and_grad(vapor_pressure)`` as the JAX package ships it, and the
-    f64 gradient of its re-attachment identity at the port's densities."""
+def _port_batch():
+    """A seeded 64-row batch: the inputs, the port's (nans, p, gradient of
+    sum log p) and its VLE densities."""
     params, temperature = ft.make_batch(64, seed=5)
 
     p = _t(params).requires_grad_()
@@ -65,6 +61,24 @@ def batch():
     port = (nans.numpy(), vp.detach().numpy(), p.grad.numpy())
     with torch.no_grad():
         rho_v, rho_l, _ = ft.pure_vle(_t(params), _t(temperature))
+    return {"params": params, "t": temperature}, port, {"rv": rho_v.numpy(),
+                                                        "rl": rho_l.numpy()}
+
+
+OUTPUTS = ("nans", "vp", "grad", "grad64")
+
+
+def jax_reference():
+    """``value_and_grad(vapor_pressure)`` as the JAX package ships it, and
+    the f64 gradient of its re-attachment identity at the port's
+    densities, in one jit."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models.pcsaft_pure import PureParams as JaxParams
+    from feos_tpu.models.pcsaft_pure import phi_pure as jax_phi_pure
+    from feos_tpu.models.pcsaft_pure import vapor_pressure as jax_vapor_pressure
+
+    inputs, _, dens = _port_batch()
 
     @jax.jit
     def reference(par, t, rv, rl):
@@ -82,8 +96,18 @@ def batch():
         (_, (nans, vp)), grad = jax.value_and_grad(loss, has_aux=True)(par)
         return nans, vp, grad, jax.grad(identity_loss)(par)
 
-    ref = reference(*(jnp.asarray(x) for x in (params, temperature, rho_v, rho_l)))
-    return tuple(np.asarray(x) for x in ref), port
+    ref = reference(*(jnp.asarray(x) for x in (*inputs.values(), *dens.values())))
+    return {**inputs, **dens, **dict(zip(OUTPUTS, ref))}
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """A seeded 64-row batch through the port and through JAX (vendored):
+    ``value_and_grad(vapor_pressure)`` as the JAX package ships it, and the
+    f64 gradient of its re-attachment identity at the port's densities."""
+    inputs, port, dens = _port_batch()
+    ref = vendored("vapor_pressure", exact=inputs, close=dens)
+    return tuple(ref[k] for k in OUTPUTS), port
 
 
 def test_batch_masks_match_jax(batch):

@@ -3,20 +3,19 @@
 One batch (a seeded ``make_batch`` sample, the reference's 6-row parameter
 grid, the README rows and supercritical rows) goes through the port's
 ``pure_vle``, through JAX ``vmap(pure_vle(..., mixed_precision=False))`` in
-one jit, and through the independent C++ oracle.
+one jit, and through the independent C++ oracle.  JAX's solve compiles for
+about 12 s on a CPU, so ``tools/gen_port_fixtures.py`` writes its
+densities to ``tests/golden/torch_vle_jax.npz``.
 """
 
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_golden import vendored
 from _torch_oracle import backend  # noqa: F401 (a fixture)
 import feos_tpu_torch as ft
-from feos_tpu.models.pcsaft_pure import PureParams as JaxParams
-from feos_tpu.solvers.vle import pure_vle as jax_pure_vle
 from feos_tpu_torch.solvers import vle
 
 # the reference's 6-row parameter grid and README example
@@ -52,16 +51,31 @@ def _inputs():
     return params, temperature
 
 
+OUTPUTS = ("rho_v", "rho_l", "ok")
+
+
+def jax_reference():
+    """JAX's f64 ``pure_vle`` on :func:`_inputs`."""
+    import jax
+    import jax.numpy as jnp
+    from feos_tpu.models.pcsaft_pure import PureParams as JaxParams
+    from feos_tpu.solvers.vle import pure_vle as jax_pure_vle
+
+    params, temperature = _inputs()
+    solve = jax.jit(jax.vmap(lambda p, t: jax_pure_vle(p, t, mixed_precision=False)))
+    ref = solve(JaxParams.from_array(jnp.asarray(params)), jnp.asarray(temperature))
+    return {"params": params, "t": temperature, **dict(zip(OUTPUTS, ref))}
+
+
 @pytest.fixture(scope="module")
 def solved(backend):
-    """(params, T, port, jax, oracle): each solution as (rho_v, rho_l, ok)."""
+    """(params, T, port, jax, oracle): each solution as (rho_v, rho_l, ok),
+    JAX's vendored."""
     params, temperature = _inputs()
     port = vle.pure_vle(torch.as_tensor(params), torch.as_tensor(temperature))
     port = tuple(x.numpy() for x in port)
-
-    solve = jax.jit(jax.vmap(lambda p, t: jax_pure_vle(p, t, mixed_precision=False)))
-    ref = solve(JaxParams.from_array(jnp.asarray(params)), jnp.asarray(temperature))
-    ref = tuple(np.asarray(x) for x in ref)
+    ref = vendored("vle", exact={"params": params, "t": temperature})
+    ref = tuple(ref[k] for k in OUTPUTS)
 
     rho, ok = backend.vapor_pressure_densities(params, temperature)
     oracle = (rho[:, 0], rho[:, 1], ok)
