@@ -1,12 +1,18 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
-Builds the port's CUDA kernels from the sources in this checkout, holds the
-kernel variant each of the main path's shapes launches against its plain
-PyTorch version, times it beside its bound, checks the README
-anchors, then drives the main path at full size: vapor pressures of a
-100,000-row ``make_batch`` with reverse-mode gradients with respect to all 8
-parameters of every row (phase 5).  Phases 6-10 drive the rest of the
-pure-component surface on the same rows, each with its phi_d2 launches by k:
+Builds the port's CUDA kernels from the sources in this checkout and holds
+each against its plain PyTorch version, timed beside its bound (phase 3):
+the variant of phi_d2 each of the solver's density shapes launches, the
+pure_vle kernel (the whole pure VLE solve, a thread a row) against
+``pure_vle_plain`` and the vp_identity kernel (the vapor-pressure identity
+and its 9 partials) against autograd of its plain graph, both on 100,000
+``make_batch`` rows.  It checks the README anchors through both kernels,
+then drives the main path at full size: vapor pressures of a 100,000-row
+``make_batch`` with reverse-mode gradients with respect to all 8
+parameters of every row, one pure_vle and one vp_identity launch and no
+phi_d2 launch, held to its torch-ops twin on the card, with a profile of
+the step (phase 5).  Phases 6-10 drive the rest of the
+pure-component surface on the same rows, each with its kernel launches:
 liquid and saturated liquid densities, critical points, boiling
 temperatures (each with a parameter gradient), residual properties, and
 three steps of ``fit_pure``; each reruns its first 2,000 rows on the CPU
@@ -25,7 +31,7 @@ at 4,096 and 100,000 rows and of the golden topologies (every association
 regime) at 4,096, each with the gradient of sum log p in the segment
 parameters, k_ab and phi, a warm start and 512 rows on the CPU, and three
 ``fit_gc`` steps.  Phase 14 drives the binary workload built on bubble and
-dew points, torch ops but for the diagrams' pure seeds (``phi_d2``): bubble
+dew points, torch ops but for the diagrams' pure seeds (``pure_vle``): bubble
 and dew temperatures of config 3 and of config 4 at 4,096 and 100,000 rows
 (the golden topologies at 512) at the port's own pressures, with gradients,
 the implicit-function identity and 512 rows on the CPU; three
@@ -94,12 +100,14 @@ from feos_tpu_torch import (
     pure_derivatives, pure_properties, pure_vle, vapor_pressure,
 )
 from feos_tpu_torch.kernels import build
+from feos_tpu_torch.kernels import pure_vle as pure_vle_kernel
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
+from feos_tpu_torch.kernels.vp_identity import identity_plain, vp_identity, vp_identity_plain
 from feos_tpu_torch.ops.derivatives import state_derivatives
 from feos_tpu_torch.parallel import (
     all_reduce_sum, batch_mesh, data_parallel, initialize_multi_host, pad_to_multiple,
 )
-from feos_tpu_torch.solvers.vle import _ETA_GRID
+from feos_tpu_torch.solvers.vle import _ETA_GRID, pure_vle_plain
 from feos_tpu_torch.utils import masked_sum
 from feos_tpu_torch.units import KMOL_M3_TO_REDUCED, REDUCED_TO_PA_PER_KT, RGAS
 
@@ -136,6 +144,29 @@ OPS_ASSOC_SYMMETRIC = 93
 # outputs an element
 BYTES_ROW = 72
 BYTES_ELEMENT = 32
+# pure_vle: a row's phi evaluations (the kernel counts them) at the
+# operations above, and its bytes: 8 parameters and T in; rho_V, rho_L, the
+# mask and three int32 counters out; the 48 grid points once
+BYTES_VLE_ROW = 72 + 16 + 1 + 12
+PURE_VLE_RTOL = 1e-10    # rho_V, rho_L of the kernel against pure_vle_plain
+# f64 operations vp_identity needs a row: p~ and its 9 partials in the 9-slot
+# dual, tallied without the operations on exact zeros (the tangents a
+# quantity does not depend on) by csrc/vp_identity_ops.cpp: a non-polar,
+# non-associating row; what a dipole and the two-site association add (fewer
+# where na = nb, whose rho_a - rho_b is 0); and what a row with m > 2 saves
+# (md2 = 0 there, with its tangents).  tests/test_torch_vp_identity_kernel.py
+# holds vp_identity_ops() to the tally of the header row by row.
+OPS_VP_ROW = 1473
+OPS_VP_DIPOLE = 399
+OPS_VP_ASSOC = 583
+OPS_VP_ASSOC_SYMMETRIC = 463
+OPS_VP_SAVED_M2 = 78
+OPS_VP_SAVED_M2_DIPOLE = 36
+# bytes vp_identity must move a row: 8 parameters, T, rho_V, rho_L in; p~
+# and 9 partials out
+BYTES_VP_ROW = 21 * 8
+VP_RTOL = 1e-12          # p~ of the kernel against the plain graph
+PARTIALS_BOUND = 1e-10   # max_scaled_error of the partials and gradients
 REPS = 50
 # phases 6-10: rows rerun on the CPU through the plain path, Adam steps, the
 # share of critical rows whose VLE must converge at 0.98 T_c (the pure VLE of
@@ -318,7 +349,7 @@ def sass_f64(binary):
             name, open_ = m.group(1), True
             counts[name] = [0, 0, 0]
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and name:
             is_f64 = m.group(2).startswith(F64_OPCODES)
             counts[name][0] += 1
@@ -345,7 +376,7 @@ def probe_f64(out_dir):
 
 def kernel_name(mangled):
     """``phi_d2_elem`` from a mangled kernel name."""
-    m = re.search(r"\d(phi_d2_[a-z]+)", mangled)
+    m = re.search(r"\d(phi_d2_[a-z]+|pure_vle_kernel|vp_identity_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
@@ -391,12 +422,44 @@ def work(params, temperature, k):
     return ops, B * BYTES_ROW + B * k * BYTES_ELEMENT
 
 
-def bound(params, temperature, k):
+def bound_of(ops, nbytes):
     """``(bound_ms, bound_by)``: the larger of the f64 operations over the
-    f64 peak and the bytes over the memory rate, for these rows at k."""
-    ops, nbytes = work(params, temperature, k)
-    t_ops, t_bytes = ops / PEAK_F64_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    f64 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = float(ops) / PEAK_F64_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound(params, temperature, k):
+    """``bound_of`` what ``phi_d2`` must do for these rows at k."""
+    return bound_of(*work(params, temperature, k))
+
+
+@torch.no_grad()
+def vle_work(params, temperature, iters):
+    """``(ops, bytes)`` that ``pure_vle`` must do and move for these rows:
+    each row's phi evaluations (the kernel's counter, ``iters[:, 2]``) at
+    phi_d2's operations for the row's terms, and its row stage once; each
+    input read once, each output written once."""
+    pre = precompute_pure(PureParams.from_tensor(params), temperature)
+    associating = pre.delta_t != 0.0
+    per_eval = (OPS_ELEMENT + (pre.mu2eff != 0.0) * OPS_DIPOLE
+                + torch.where(pre.na == pre.nb, OPS_ASSOC_SYMMETRIC, OPS_ASSOC) * associating)
+    B = params.shape[0]
+    ops = B * OPS_ROW + int((iters[:, 2].long() * per_eval).sum())
+    return ops, B * BYTES_VLE_ROW + len(_ETA_GRID) * 8
+
+
+def vp_identity_ops(params):
+    """The f64 operations ``vp_identity`` needs for each row, ``(B,)``: the
+    OPS_VP_* counts of the row's terms.  The association term runs where
+    kappa_ab or eps_ab is not 0 (its tangents are not 0 there); a row with
+    only one of them 0 (none in make_batch) needs fewer than counted."""
+    m, mu, kappa_ab, eps_ab, na, nb = (params[:, j] for j in (0, 3, 4, 5, 6, 7))
+    dipolar = (mu != 0.0).long()
+    assoc = torch.where(na == nb, OPS_VP_ASSOC_SYMMETRIC, OPS_VP_ASSOC)
+    return (OPS_VP_ROW + dipolar * OPS_VP_DIPOLE
+            + assoc * ((kappa_ab != 0.0) | (eps_ab != 0.0))
+            - (m > 2.0).long() * (OPS_VP_SAVED_M2 + dipolar * OPS_VP_SAVED_M2_DIPOLE))
 
 
 def kernel_vs_plain(dev, params, temperature):
@@ -452,12 +515,104 @@ def kernel_vs_plain(dev, params, temperature):
     return result
 
 
+def pure_vle_vs_plain(params, temperature):
+    """Phase 3: the pure_vle kernel against pure_vle_plain on the card
+    (which launches phi_d2) on phase 5's rows: equal masks, rho_V and rho_L
+    within PURE_VLE_RTOL; both loops' iteration maxima; the per-row counts;
+    times in turns beside the bound.  Returns its record and the kernel's
+    (rho_v, rho_l, ok)."""
+    stats = {}
+    want = pure_vle_plain(params, temperature, stats=stats)
+    rho_v, rho_l, ok, iters = pure_vle_kernel.launch(params, temperature)
+    torch.cuda.synchronize()
+    check(torch.equal(ok, want[2]),
+          f"pure_vle: kernel and plain masks differ on {int((ok != want[2]).sum())} rows")
+    rel = max(float((a / b - 1.0).abs()[ok].max()) for a, b in zip((rho_v, rho_l), want))
+    abs_err = max(float((a - b).abs()[ok].max()) for a, b in zip((rho_v, rho_l), want))
+    npt, newton, evals = iters.T.long()
+    # a warp runs its slowest row: the evaluations its 32 rows did against
+    # 32 times its largest
+    warps = evals[: len(evals) // 32 * 32].view(-1, 32)
+    lanes = float(warps.sum() / (32 * warps.max(1).values.sum()))
+    print(f"pure_vle vs plain (B={len(ok)}): masks equal ({int(ok.sum())} converged), max rel "
+          f"err rho {rel:.3e} (rtol {PURE_VLE_RTOL:g}), max abs err {abs_err:.3e}; kernel "
+          f"maxima npt {int(npt.max())}, newton {int(newton.max())}; plain loops npt "
+          f"{stats['npt']}, newton {stats['newton']}")
+    q = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=evals.device)
+    print(f"  per-row counts (median, 90%, 99%, max): npt "
+          f"{torch.quantile(npt.double(), q).tolist()}, newton "
+          f"{torch.quantile(newton.double(), q).tolist()}, phi evaluations "
+          f"{torch.quantile(evals.double(), q).tolist()}, mean {float(evals.double().mean()):.2f}; "
+          f"lanes busy in a warp {lanes:.3f}")
+    check(rel <= PURE_VLE_RTOL, "pure_vle kernel off pure_vle_plain")
+    plain_1 = cuda_ms(lambda: pure_vle_plain(params, temperature), 2)
+    kern_1 = cuda_ms(lambda: pure_vle_kernel.launch(params, temperature), 10)
+    kern_2 = cuda_ms(lambda: pure_vle_kernel.launch(params, temperature), 10)
+    plain_2 = cuda_ms(lambda: pure_vle_plain(params, temperature), 2)
+    kern, plain = (kern_1 + kern_2) / 2, (plain_1 + plain_2) / 2
+    ops, nbytes = vle_work(params, temperature, iters)
+    bound_ms, bound_by = bound_of(ops, nbytes)
+    print(f"pure_vle: kernel {kern:.4f} ms ({kern_1:.4f}, {kern_2:.4f}), plain {plain:.1f} ms "
+          f"({plain_1:.1f}, {plain_2:.1f}), bound {bound_ms:.5f} ms ({bound_by}: {ops:.4e} f64 "
+          f"operations), share of bound {bound_ms / kern:.3f}")
+    record = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+              "share": bound_ms / kern, "max_abs_err": abs_err, "max_rel_err": rel,
+              "kernel_maxima": {"npt": int(npt.max()), "newton": int(newton.max())},
+              "plain_loops": {"npt": stats["npt"], "newton": stats["newton"]},
+              "mean_evaluations": float(evals.double().mean()), "lanes_busy": lanes}
+    return record, (rho_v, rho_l, ok)
+
+
+def vp_identity_vs_plain(params, temperature, rho_v, rho_l, ok):
+    """Phase 3: the vp_identity kernel against autograd of the plain graph
+    on the card, at the pure_vle kernel's densities of phase 5's rows
+    (sanitised as vapor_pressure does): p~ within VP_RTOL, each partial
+    within PARTIALS_BOUND by max_scaled_error; times in turns beside the
+    bound."""
+    rho_v = torch.where(ok, rho_v, 1e-5)
+    rho_l = torch.where(ok, rho_l, 1e-3)
+    args = (params, temperature, rho_v, rho_l)
+    want = vp_identity_plain(*args)
+    got = vp_identity(*args)
+    torch.cuda.synchronize()
+    rel = float((got[0] / want[0] - 1.0).abs().max())
+    errs = [max_scaled_error(got[1][:, j], want[1][:, j]) for j in range(9)]
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"vp_identity vs plain (B={len(rho_v)}): max rel err p~ {rel:.3e} (rtol "
+          f"{VP_RTOL:g}); scaled err of the partials in [m, sigma, eps, mu, kappa_ab, eps_ab, "
+          f"na, nb, T] {[float(f'{e:.3e}') for e in errs]} (bound {PARTIALS_BOUND:g}); max abs "
+          f"err {abs_err:.3e}")
+    check(rel <= VP_RTOL, "vp_identity p~ off the plain graph")
+    check(max(errs) < PARTIALS_BOUND, "vp_identity partials off autograd of the plain graph")
+    plain_1 = cuda_ms(lambda: vp_identity_plain(*args), 3)
+    kern_1 = cuda_ms(lambda: vp_identity(*args), 20)
+    kern_2 = cuda_ms(lambda: vp_identity(*args), 20)
+    plain_2 = cuda_ms(lambda: vp_identity_plain(*args), 3)
+    kern, plain = (kern_1 + kern_2) / 2, (plain_1 + plain_2) / 2
+    ops = int(vp_identity_ops(params).sum())
+    bound_ms, bound_by = bound_of(ops, len(rho_v) * BYTES_VP_ROW)
+    print(f"vp_identity: kernel {kern:.4f} ms ({kern_1:.4f}, {kern_2:.4f}), plain {plain:.3f} "
+          f"ms ({plain_1:.3f}, {plain_2:.3f}), bound {bound_ms:.5f} ms ({bound_by}: {ops:.4e} "
+          f"f64 operations), share of bound {bound_ms / kern:.3f}")
+    return {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / kern, "max_abs_err": abs_err, "max_rel_err_p": rel,
+            "max_scaled_err_partials": max(errs)}
+
+
 def readme_anchors(dev):
-    """Phase 4: README vapor pressures and gradient through the port."""
+    """Phase 4: README vapor pressures and gradient through the port, one
+    launch each of pure_vle and vp_identity."""
     p0 = f64(README_PARAMS, dev).requires_grad_()
-    nans, vp = vapor_pressure(p0.expand(len(README_T), 8), f64(README_T, dev))
+
+    def run():
+        nans, vp = vapor_pressure(p0.expand(len(README_T), 8), f64(README_T, dev))
+        vp[0].backward()
+        return nans, vp
+
+    (nans, vp), _, _, by = on_card(run)
     check(not bool(nans.any()), "README rows failed")
-    vp[0].backward()
+    print(f"README rows: launches {by}")
+    expect("README vapor pressures", by, pure_vle=1, vp_identity=1)
     got = vp.detach().cpu().numpy()
     rel = np.max(np.abs(got / np.asarray(README_VP) - 1.0))
     print(f"README vapor pressures {got.tolist()} Pa: max rel err {rel:.3e} "
@@ -474,36 +629,46 @@ def log_sum(nans, x):
     return torch.where(nans, 0.0, torch.log(torch.where(nans, 1.0, x))).sum()
 
 
-def solves_and_grads(params, temperature):
+def vapor_pressure_plain(params, temperature):
+    """``vapor_pressure`` with its torch-ops twins on any device: the solve
+    by ``pure_vle_plain``, the identity's graph through autograd."""
+    rho_v, rho_l, ok = pure_vle_plain(params, temperature)
+    p_red = identity_plain(params, temperature, torch.where(ok, rho_v, 1e-5),
+                           torch.where(ok, rho_l, 1e-3))
+    return ~ok, torch.where(ok, p_red * temperature * REDUCED_TO_PA_PER_KT, torch.nan)
+
+
+def solves_and_grads(params, temperature, plain=False):
     """The main path: vapor pressures, then d/dparams of sum log p over the
-    converged rows (bench.py's loss)."""
+    converged rows (bench.py's loss); with ``plain`` its torch-ops twin."""
     p = params.detach().requires_grad_()
-    nans, vp = vapor_pressure(p, temperature)
+    nans, vp = (vapor_pressure_plain if plain else vapor_pressure)(p, temperature)
     log_sum(nans, vp).backward()
     return nans, vp.detach(), p.grad
 
 
 def main_path(dev, params, temperature, power):
-    """Phase 5: the full-size main path, with the launch counts and rate."""
+    """Phase 5: the full-size main path, with the launch counts and rate,
+    held to its torch-ops twin on the card; where the step's time goes."""
     stats = {}
-    pure_vle(params, temperature, stats=stats)  # warm-up; loop iteration counts
+    pure_vle(params, temperature, stats=stats)  # warm-up; per-row iteration maxima
     torch.cuda.synchronize()
-    print(f"solver loops at B={B}: {stats}")
+    print(f"solver at B={B}: {stats}")
 
-    phi_d2.launches = 0
-    phi_d2.launches_by_k = {}
-    nans, vp, grad = solves_and_grads(params, temperature)
-    torch.cuda.synchronize()
-    launches, by_k = phi_d2.launches, dict(phi_d2.launches_by_k)
+    (nans, vp, grad), _, launches, by = on_card(lambda: solves_and_grads(params, temperature))
     n_ok = int((~nans).sum())
-    print(f"converged {n_ok} of {B} ({100.0 * n_ok / B:.4f}%), phi_d2 launches {launches}, "
-          f"by k {by_k}")
+    print(f"converged {n_ok} of {B} ({100.0 * n_ok / B:.4f}%), launches {by}")
     check(n_ok >= MIN_CONVERGED, f"only {n_ok} of {B} rows converged")
     check(bool(torch.isfinite(grad).all()), "non-finite parameter gradients")
-    check(launches >= stats["phi_d2_calls"] > 0,
-          f"{launches} phi_d2 launches for {stats['phi_d2_calls']} solver evaluations")
-    check(sorted(by_k) == [1, 2, 48] and sum(by_k.values()) == launches,
-          f"phi_d2 launches by k {by_k}")
+    expect("the main path", by, pure_vle=1, vp_identity=1)
+    (p_nans, p_vp, p_grad), plain_sec, _, plain_by = on_card(
+        lambda: solves_and_grads(params, temperature, plain=True))
+    agree("vapor_pressure", nans, vp, p_nans, p_vp, 1e-10, ref="the plain path on the card")
+    err = max_scaled_error(grad, p_grad)
+    print(f"  card vs the plain path on the card, d sum log p / d params: max scaled err "
+          f"{err:.3e} (bound {PARTIALS_BOUND:g}); the plain path {plain_sec * 1e3:.1f} ms, "
+          f"launches {plain_by}")
+    check(err < PARTIALS_BOUND, "main path gradients off the plain path's")
 
     times = []
     for _ in range(3):
@@ -516,32 +681,63 @@ def main_path(dev, params, temperature, power):
     print(f"main path B={B}: step {step * 1e3:.1f} ms (median of "
           f"{[round(t * 1e3, 1) for t in times]} ms), "
           f"{n_ok / step:.1f} converged solves+gradients/s on {power}")
-    return launches, by_k, nans, vp
+    record = {"launches": launches, "by_kernel": by, "ms": step * 1e3,
+              "converged_per_s": n_ok / step, "plain_ms": plain_sec * 1e3}
+    profile(5, "the main path", lambda: solves_and_grads(params, temperature), record)
+    return record, nans, vp
+
+
+KERNELS = ("phi_d2", "pure_vle", "vp_identity")
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    phi_d2.launches = 0
+    phi_d2.launches_by_k = {}
+    pure_vle_kernel.pure_vle.launches = 0
+    vp_identity.launches = 0
+
+
+def counts():
+    """Each kernel's launches since :func:`reset_counts`, phi_d2's also by k."""
+    return {"phi_d2": phi_d2.launches,
+            "phi_d2_by_k": {str(k): n for k, n in sorted(phi_d2.launches_by_k.items())},
+            "pure_vle": pure_vle_kernel.pure_vle.launches,
+            "vp_identity": vp_identity.launches}
 
 
 def on_card(fn):
-    """``(fn(), seconds, launches, launches by k)``: the phi_d2 counts are
-    set to 0 just before ``fn`` runs and read just after."""
+    """``(fn(), seconds, launches, by kernel)``: every kernel's count is set
+    to 0 just before ``fn`` runs and read just after; ``launches`` is their
+    sum and ``by kernel`` the :func:`counts`."""
     torch.cuda.synchronize()
-    phi_d2.launches = 0
-    phi_d2.launches_by_k = {}
+    reset_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, phi_d2.launches, dict(phi_d2.launches_by_k)
+    seconds, by = time.perf_counter() - t0, counts()
+    return out, seconds, sum(by[k] for k in KERNELS), by
 
 
-def launch_counts(seconds, launches, by_k):
-    """A path's entry of the kernels line: its phi_d2 launches by k and ms."""
-    return {"launches": launches, "by_k": {str(k): n for k, n in sorted(by_k.items())},
-            "ms": seconds * 1e3}
+def expect(label, by, **want):
+    """Each kernel's launches on a path: an int named for a kernel is its
+    exact count, "some" at least one, and a kernel not named launched none."""
+    for name in KERNELS:
+        w, n = want.get(name, 0), by[name]
+        check(n > 0 if w == "some" else n == w,
+              f"{label}: {n} {name} launches where {w} were expected")
 
 
-def report(phase, name, nans, seconds, launches, by_k):
+def launch_counts(seconds, launches, by):
+    """A path's entry of the kernels line: its launches by kernel and ms."""
+    return {"launches": launches, "by_kernel": by, "ms": seconds * 1e3}
+
+
+def report(phase, name, nans, seconds, launches, by):
     n_ok = int((~nans).sum())
     print(f"phase {phase} {name}: converged {n_ok} of {nans.numel()}, "
-          f"{seconds * 1e3:.1f} ms, phi_d2 launches {launches}, by k {by_k}")
-    return launch_counts(seconds, launches, by_k)
+          f"{seconds * 1e3:.1f} ms, launches {launches}: {by}")
+    return launch_counts(seconds, launches, by)
 
 
 def cpu(*xs):
@@ -577,13 +773,15 @@ def liquid_densities(params, temperature, p_sat):
         return nans, rho.detach(), p.grad
 
     paths, out = {}, {}
-    for name, fn, args in (
-        ("liquid_density", liquid_density, (temperature, p_sat)),
-        ("equilibrium_liquid_density", equilibrium_liquid_density, (temperature,)),
+    # liquid_density's NPT solve is phi_d2's; the equilibrium one is pure_vle's
+    for name, fn, args, want in (
+        ("liquid_density", liquid_density, (temperature, p_sat), {"phi_d2": "some"}),
+        ("equilibrium_liquid_density", equilibrium_liquid_density, (temperature,),
+         {"pure_vle": 1}),
     ):
-        (nans, rho, grad), sec, n, by_k = on_card(lambda: run(fn, *args))
-        paths[name] = report(6, name, nans, sec, n, by_k)
-        check(n > 0, f"{name} launched no phi_d2 kernel")
+        (nans, rho, grad), sec, n, by = on_card(lambda: run(fn, *args))
+        paths[name] = report(6, name, nans, sec, n, by)
+        expect(name, by, **want)
         check(int((~nans).sum()) >= MIN_CONVERGED, f"{name}: too few rows converged")
         check(bool(torch.isfinite(grad).all()), f"{name}: non-finite gradients")
         with torch.no_grad():
@@ -610,11 +808,11 @@ def critical_points(params):
         torch.where(nans, 0.0, t_c).sum().backward()
         return nans, t_c.detach(), rho_c.detach(), p.grad
 
-    (nans, t_c, rho_c, grad), sec, n, by_k = on_card(run)
-    path = report(7, "critical_point", nans, sec, n, by_k)
+    (nans, t_c, rho_c, grad), sec, n, by = on_card(run)
+    path = report(7, "critical_point", nans, sec, n, by)
     path["newton"] = stats["newton"]
     print(f"  critical Newton iterations {stats['newton']} (cap 60)")
-    check(n > 0, "critical_point launched no phi_d2 kernel")
+    expect("critical_point", by, phi_d2="some")
     check(bool(torch.isfinite(grad).all()), "critical_point: non-finite gradients")
     ok = ~nans
     with torch.no_grad():
@@ -648,14 +846,16 @@ def boiling_temperatures(params, temperature, p_sat, nans_vp):
         torch.where(nans, 0.0, t_b).sum().backward()
         return nans, t_b.detach(), p.grad
 
-    (nans, t_b, grad), sec, n, by_k = on_card(run)
-    path = report(8, "boiling_temperature", nans, sec, n, by_k)
+    (nans, t_b, grad), sec, n, by = on_card(run)
+    path = report(8, "boiling_temperature", nans, sec, n, by)
     path["outer"] = stats["outer"]
     both = ~nans & ~nans_vp
     rel = float((t_b / temperature - 1.0).abs()[both].max())
     print(f"  secant outer iterations {stats['outer']}; round trip |T_b/T - 1| on "
           f"{int(both.sum())} rows: max {rel:.3e} (bound 1e-9)")
-    check(n > 0, "boiling_temperature launched no phi_d2 kernel")
+    # a vapor_pressure call a secant step and one to re-attach: one pure_vle
+    # and one vp_identity launch each
+    expect("boiling_temperature", by, pure_vle="some", vp_identity=by["pure_vle"])
     check(int((~nans).sum()) >= MIN_CONVERGED, "boiling_temperature: too few rows converged")
     check(rel < 1e-9, "boiling temperature round trip")
     check(bool(torch.isfinite(grad).all()), "boiling_temperature: non-finite gradients")
@@ -686,8 +886,8 @@ def residual_properties(params, temperature, p_sat, nans_l, rho_l):
     """
     ok = ~nans_l
     rho = torch.where(ok, rho_l * KMOL_M3_TO_REDUCED, 1e-3)
-    props, sec, n, by_k = on_card(lambda: pure_properties(params, temperature, rho))
-    path = report(9, "pure_properties", nans_l, sec, n, by_k)
+    props, sec, n, by = on_card(lambda: pure_properties(params, temperature, rho))
+    path = report(9, "pure_properties", nans_l, sec, n, by)
     stiff, noise = liquid_pressure_noise(params, temperature, rho)
     to_pa = temperature * REDUCED_TO_PA_PER_KT
     # rows whose p~ f64 resolves to 1%: elsewhere Z = p~/rho may round to
@@ -742,20 +942,21 @@ def fit(params_np, temperature, p_sat, rho_l):
 
     card = run(start[:N_CPU], *(x[:N_CPU] for x in data))
     on_cpu = run(start[:N_CPU], *cpu(*data))
-    res, sec, n, by_k = on_card(lambda: run(start, *data))
-    rerun = (start, data, res, sec / FIT_STEPS)
+    res, sec, n, by = on_card(lambda: run(start, *data))
+    rerun = (start, data, res, sec / FIT_STEPS, by)
     losses = res.loss_history.cpu().numpy()
     print(f"phase 10 fit_pure: B={len(start)}, {FIT_STEPS} steps in {sec * 1e3:.1f} ms, "
-          f"step {sec / FIT_STEPS * 1e3:.1f} ms, losses {losses.tolist()}, phi_d2 launches "
-          f"{n} ({n / FIT_STEPS:g} a step), by k {by_k}")
-    check(n > 0, "fit_pure launched no phi_d2 kernel")
+          f"step {sec / FIT_STEPS * 1e3:.1f} ms, losses {losses.tolist()}, launches "
+          f"{n} ({n / FIT_STEPS:g} a step): {by}")
+    # a step: one vapor_pressure (pure_vle, vp_identity), one liquid_density
+    expect("fit_pure", by, phi_d2="some", pure_vle=FIT_STEPS, vp_identity=FIT_STEPS)
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0], "fit_pure loss")
     for name, a, b in (("loss history", card.loss_history, on_cpu.loss_history),
                        ("parameters", card.parameters.flatten(), on_cpu.parameters.flatten())):
         no = torch.zeros(b.shape, dtype=torch.bool)
         agree(f"fit_pure {name}", no, a.cpu(), no, b, 1e-10)
     return {"launches_per_step": n / FIT_STEPS, "ms_per_step": sec / FIT_STEPS * 1e3,
-            "by_k": {str(k): v for k, v in sorted(by_k.items())}, "steps": FIT_STEPS}, rerun
+            "by_kernel": by, "steps": FIT_STEPS}, rerun
 
 
 def mixture_derivatives(dev):
@@ -785,13 +986,13 @@ def mixture_derivatives(dev):
         out, sec, launches, by_k = on_card(lambda: mix_derivatives(*args))
         cpu_out = mix_derivatives(*inputs(N_CPU, "cpu"))
     print(f"phase 11 mixture derivatives at B={B} (the 14 regimes tiled): {sec * 1e3:.1f} ms, "
-          f"phi_d2 launches {launches}")
-    check(launches == 0, "the mixture path launched phi_d2")
+          f"kernel launches {launches}")
+    check(launches == 0, "the mixture path launched a kernel")
     for key, got, want in zip(("A", "p~", "mu", "v"), out, cpu_out):
         got, want = got[:N_CPU].cpu().flatten(), want.flatten()
         no = torch.zeros(got.shape, dtype=torch.bool)
         agree(f"mixture derivatives {key}", no, got, no, want, 1e-12)
-    return {"launches": launches, "by_k": {}, "ms": sec * 1e3}
+    return {"launches": launches, "by_kernel": {}, "ms": sec * 1e3}
 
 
 def mixture_run(fn, params, kij, temperature, x1, p0, state0=None, stats=None):
@@ -809,9 +1010,9 @@ def mixture_run(fn, params, kij, temperature, x1, p0, state0=None, stats=None):
 def timed_solves(phase, label, run, rows):
     """A bubble or dew path's cold call with its loop iterations, the median
     of MIX_REPS synchronised calls, and a warm start from the cold call's
-    state, each with the phi_d2 launches it made; ``run(state0=None,
+    state, each with the kernel launches it made; ``run(state0=None,
     stats=None)`` returns ``(nans, p, state, gradients)``.  Checks that no
-    call launched phi_d2, that every row converged with finite gradients,
+    call launched a kernel, that every row converged with finite gradients,
     and that the warm start is within 1e-9 of the cold values.  Returns the
     cold call's ``(nans, p, gradients)`` and the path's record."""
     stats, warm_stats = {}, {}
@@ -829,15 +1030,15 @@ def timed_solves(phase, label, run, rows):
     warm_rel = float((w_p / p - 1.0).abs()[ok].max())
     print(f"phase {phase} {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
           f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
-          f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, phi_d2 "
+          f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, kernel "
           f"launches {launches}; warm start {w_sec * 1e3:.1f} ms, loops {warm_stats}, "
           f"converged {int((~w_nans).sum())}, max |p_warm/p - 1| {warm_rel:.3e} (bound 1e-9)")
-    check(launches == 0, f"{label}: the path launched phi_d2")
+    check(launches == 0, f"{label}: the path launched a kernel")
     check(n_ok == rows, f"{label}: only {n_ok} of {rows} rows converged")
     check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
     check(bool(w_nans.eq(nans).all()) and warm_rel < 1e-9, f"{label}: warm start")
     return (nans, p, grads), {
-        "launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+        "launches": launches, "by_kernel": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
         "converged": n_ok, "rows": rows, "loops": stats, "warm_ms": w_sec * 1e3,
         "warm_loops": warm_stats}
 
@@ -877,36 +1078,41 @@ def profile(phase, label, fn, record, what="solve + backward"):
     (:func:`device_profile`) against the path's unprofiled median, added to
     its ``record``."""
     t0 = time.perf_counter()
-    busy, kernels, host_ops = device_profile(fn)
+    busy, kernels, host_ops, syncs = device_profile(fn)
     record["profile_s"] = time.perf_counter() - t0
     step = record["ms"]
     idle = f"idle share {1.0 - busy / step:.3f}" if kernels else "busy time not measured"
-    print(f"phase {phase} profile of {label} ({what}): card busy {busy:.1f} ms in "
-          f"{kernels} kernels, {host_ops} aten ops on the host; {idle} of the unprofiled "
-          f"median {step:.1f} ms; the profile took {record['profile_s']:.1f} s")
-    record.update(busy_ms=busy if kernels else None, kernels=kernels, host_ops=host_ops)
+    print(f"phase {phase} profile of {label} ({what}): card busy {busy:.3f} ms in "
+          f"{kernels} kernels, {host_ops} aten ops and {syncs} syncs on the host; {idle} of "
+          f"the unprofiled median {step:.1f} ms; the profile took {record['profile_s']:.1f} s")
+    record.update(busy_ms=busy if kernels else None, kernels=kernels, host_ops=host_ops,
+                  syncs=syncs)
 
 
 def device_profile(fn):
-    """``(device ms, kernels, host ops)`` of one call of ``fn`` under
+    """``(device ms, kernels, host ops, syncs)`` of one call of ``fn`` under
     ``torch.profiler``: the summed time and count of the kernels the card
-    ran, and the aten ops the host dispatched.  It reads the profiler's raw
-    events: ``prof.events()`` builds an event tree first, which took 171 s
-    for the 5 * 10^5 events of a config 3 bubble-temperature call."""
+    ran, the aten ops the host dispatched, and the host's waits on the card
+    (CUDA runtime calls named ``*Synchronize``, the one that closes the
+    window among them).  It reads the profiler's raw events:
+    ``prof.events()`` builds an event tree first, which took 171 s for the
+    5 * 10^5 events of a config 3 bubble-temperature call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device_ns, kernels, host_ops = 0, 0, 0
+    device_ns, kernels, host_ops, syncs = 0, 0, 0, 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             device_ns += e.duration_ns()
             kernels += 1
         elif e.name().startswith("aten::"):
             host_ops += 1
-    return device_ns / 1e6, kernels, host_ops
+        elif "Synchronize" in e.name():
+            syncs += 1
+    return device_ns / 1e6, kernels, host_ops, syncs
 
 
 def mixtures(dev):
@@ -998,13 +1204,13 @@ def gc_derivative_set(dev):
         out, sec, launches, _ = on_card(lambda: model.derivatives(*args))
         cpu_out = system.model("cpu", N_CPU).derivatives(*state(N_CPU, "cpu"))
     print(f"phase 13 gc derivatives at B={B} (the 11 topologies tiled): {sec * 1e3:.1f} ms, "
-          f"phi_d2 launches {launches}")
-    check(launches == 0, "the gc derivative path launched phi_d2")
+          f"kernel launches {launches}")
+    check(launches == 0, "the gc derivative path launched a kernel")
     for key, got, want in zip(("A", "p~", "mu", "v"), out, cpu_out):
         got, want = got[:N_CPU].cpu().flatten(), want.flatten()
         no = torch.zeros(got.shape, dtype=torch.bool)
         agree(f"gc derivatives {key}", no, got, no, want, 1e-12)
-    return {"launches": launches, "by_k": {}, "ms": sec * 1e3}
+    return {"launches": launches, "by_kernel": {}, "ms": sec * 1e3}
 
 
 def gc_run(model, name, temperature, x1, p0, state0=None, stats=None):
@@ -1089,16 +1295,16 @@ def gc_fit(dev, p_data):
     losses = res.loss_history.cpu().numpy()
     print(f"phase 13 fit_gc: B={GC_ROWS}, {GC_FIT_STEPS} steps (and the cold solve that "
           f"seeds them) in {sec * 1e3:.1f} ms, {sec / GC_FIT_STEPS * 1e3:.1f} ms a step, "
-          f"losses {losses.tolist()}, k_ab {res.parameters.tolist()}, phi_d2 launches "
+          f"losses {losses.tolist()}, k_ab {res.parameters.tolist()}, kernel launches "
           f"{launches}")
-    check(launches == 0, "fit_gc launched phi_d2")
+    check(launches == 0, "fit_gc launched a kernel")
     check(bool(np.isfinite(losses).all()) and bool(np.all(np.diff(losses) < 0.0)),
           "fit_gc loss does not fall")
     for what, a, b in (("loss history", card.loss_history, on_cpu.loss_history),
                        ("k_ab", card.parameters, on_cpu.parameters)):
         no = torch.zeros(b.shape, dtype=torch.bool)
         agree(f"fit_gc {what}", no, a.cpu(), no, b, 1e-10)
-    return {"launches": launches, "by_k": {}, "ms_per_step": sec / GC_FIT_STEPS * 1e3,
+    return {"launches": launches, "by_kernel": {}, "ms_per_step": sec / GC_FIT_STEPS * 1e3,
             "steps": GC_FIT_STEPS, "losses": losses.tolist()}
 
 
@@ -1115,9 +1321,9 @@ def temperature_run(fn, params, kij, pressure, x1, t0, stats=None):
 
 def timed_calls(phase, label, run, rows):
     """Phases 14 and 16: a path's first call with its loop counts (``stats``), then
-    the median of MIX_REPS synchronised calls, each with the phi_d2 launches
+    the median of MIX_REPS synchronised calls, each with the kernel launches
     it made; ``run(stats=None)`` returns ``(nans, values, gradients)``.
-    Checks that no call launched phi_d2, that every row converged and that
+    Checks that no call launched a kernel, that every row converged and that
     the gradients are finite.  Returns the first call's output and the
     path's record."""
     stats = {}
@@ -1131,13 +1337,13 @@ def timed_calls(phase, label, run, rows):
     step = statistics.median(times)
     print(f"phase {phase} {label}: converged {n_ok} of {rows}, first call {sec * 1e3:.1f} ms, "
           f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
-          f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, phi_d2 "
+          f"({n_ok / step:.1f} converged solves+gradients/s), loops {stats}, kernel "
           f"launches {launches}")
-    check(launches == 0, f"{label}: the path launched phi_d2")
+    check(launches == 0, f"{label}: the path launched a kernel")
     check(n_ok == rows, f"{label}: only {n_ok} of {rows} rows converged")
     check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
     return (nans, values, grads), {
-        "launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+        "launches": launches, "by_kernel": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
         "converged": n_ok, "rows": rows, "loops": stats}
 
 
@@ -1270,7 +1476,7 @@ def gc_temperatures(dev):
     (nans, t, grads), sec, launches, _ = on_card(lambda: gc_temperature_run(
         golden.model(dev), "bubble", *(x.to(dev) for x in args), stats=stats))
     print(f"phase 14 {label}: converged {int((~nans).sum())} of {N_CPU_T}, one call "
-          f"{sec * 1e3:.1f} ms, loops {stats}, phi_d2 launches {launches}")
+          f"{sec * 1e3:.1f} ms, loops {stats}, kernel launches {launches}")
     check(launches == 0 and not bool(nans.any()), f"{label}: launches or failed rows")
     recovers(label, t, 300.0)
     c0 = time.perf_counter()
@@ -1278,7 +1484,7 @@ def gc_temperatures(dev):
     print(f"  {label}: the CPU's call {time.perf_counter() - c0:.1f} s")
     agree(f"{label} T", nans.cpu(), t.cpu(), c_nans, c_t, 1e-10)
     agree_gradients(label, ("segment parameters", "k_ab", "phi"), grads, c_grads)
-    paths[label] = {"launches": launches, "by_k": {}, "ms": sec * 1e3, "loops": stats}
+    paths[label] = {"launches": launches, "by_kernel": {}, "ms": sec * 1e3, "loops": stats}
     return paths, states
 
 
@@ -1303,15 +1509,15 @@ def binary_fit(dev, p_data):
     print(f"phase 14 fit_binary: B={FIT_BINARY_ROWS}, {FIT_BINARY_STEPS} steps (and the cold "
           f"solve that seeds them) in {sec * 1e3:.1f} ms, {sec / FIT_BINARY_STEPS * 1e3:.1f} "
           f"ms a step, losses {losses.tolist()}, [kij, eps_AiBj] {res.parameters.tolist()}, "
-          f"phi_d2 launches {launches}")
-    check(launches == 0, "fit_binary launched phi_d2")
+          f"kernel launches {launches}")
+    check(launches == 0, "fit_binary launched a kernel")
     check(bool(np.isfinite(losses).all()) and bool(np.all(np.diff(losses) < 0.0)),
           "fit_binary loss does not fall")
     for what, a, b in (("loss history", card.loss_history, on_cpu.loss_history),
                        ("[kij, eps_AiBj]", card.parameters, on_cpu.parameters)):
         no = torch.zeros(b.shape, dtype=torch.bool)
         agree(f"fit_binary {what}", no, a.cpu(), no, b, 1e-8)
-    return {"launches": launches, "by_k": {}, "ms_per_step": sec / FIT_BINARY_STEPS * 1e3,
+    return {"launches": launches, "by_kernel": {}, "ms_per_step": sec / FIT_BINARY_STEPS * 1e3,
             "steps": FIT_BINARY_STEPS, "losses": losses.tolist()}
 
 
@@ -1329,8 +1535,8 @@ def closes(label, dew, temperature, y1, pressure):
 def diagrams(dev):
     """Phase 14(d): p-x-y at 150 K and T-x-y at 1e5 Pa of config 3's pair
     and of the non-associating pair, and the gc diagrams of config 4 at
-    300 K and 3e5 Pa, at DIAGRAM_POINTS points, each with its phi_d2
-    launches by k (the pure seeds) and the closure of its dew curve."""
+    300 K and 3e5 Pa, at DIAGRAM_POINTS points, each with its kernel
+    launches (the pure seeds) and the closure of its dew curve."""
     paths = {}
     n = DIAGRAM_POINTS
     for pair, system, kij in (("config 3", CONFIG3, CONFIG3_KIJ),
@@ -1341,9 +1547,10 @@ def diagrams(dev):
         for kind, fn, arg in (("p-x-y", binary_pxy, 150.0), ("T-x-y", binary_txy, 1e5)):
             label = f"{pair} {kind}"
             with torch.no_grad():
-                d, sec, launches, by_k = on_card(lambda: fn(system, kij, arg, n, device=dev))
-            paths[label] = report(14, label, d.nans, sec, launches, by_k)
-            check(launches > 0, f"{label}: the pure seeds launched no phi_d2")
+                d, sec, launches, by = on_card(lambda: fn(system, kij, arg, n, device=dev))
+            paths[label] = report(14, label, d.nans, sec, launches, by)
+            # the pure seeds: vapor pressures (p-x-y), boiling points (T-x-y)
+            expect(f"{label} pure seeds", by, pure_vle="some", vp_identity=by["pure_vle"])
             check(not bool(d.nans.any()), f"{label}: failed rows")
             if kind == "p-x-y":
                 closes(label, dew, torch.full_like(d.p, arg), d.y1, d.p)
@@ -1353,8 +1560,8 @@ def diagrams(dev):
     for kind, fn, arg in (("p-x-y", gc_binary_pxy, 300.0), ("T-x-y", gc_binary_txy, 3e5)):
         label = f"gc config 4 {kind}"
         with torch.no_grad():
-            d, sec, launches, by_k = on_card(lambda: fn(model, arg, n_points=n))
-        paths[label] = report(14, label, d.nans, sec, launches, by_k)
+            d, sec, launches, by = on_card(lambda: fn(model, arg, n_points=n))
+        paths[label] = report(14, label, d.nans, sec, launches, by)
         check(launches == 0 and not bool(d.nans.any()), f"{label}: launches or failed rows")
         if kind == "p-x-y":
             closes(label, model.dew_point, torch.full_like(d.p, arg), d.y1, d.p)
@@ -1404,7 +1611,7 @@ def property_case(phase, label, properties, helmholtz, properties_cpu, temperatu
     path = report(phase, f"{label} (liquid and vapor)",
                   torch.zeros(2 * rows, dtype=torch.bool),
                   sec, launches, {})
-    check(launches == 0, f"{label}: launched phi_d2")
+    check(launches == 0, f"{label}: launched a kernel")
     floors = {name: property_floors(out[name], temperature, rho,
                                     ray_stiffness(helmholtz, temperature, rho))
               for name, rho in phases.items()}
@@ -1488,7 +1695,7 @@ def flash_rates(label, run, rows, p):
     """Phase 15(a, c): a flash path's first call with its loop counts, then
     the median of FLASH_REPS synchronised calls, each at p varied by 1e-9
     relative (as run_all.py::config6 does); ``run(p, stats=None)`` returns
-    the flash's outputs.  Checks that no call launched phi_d2 and that every
+    the flash's outputs.  Checks that no call launched a kernel and that every
     row split in two phases, as the C++ oracle splits them.  Returns the
     first call's outputs and the path's record."""
     stats = {}
@@ -1502,10 +1709,10 @@ def flash_rates(label, run, rows, p):
     n_two = int((out[4] == 2).sum())
     print(f"phase 15 {label}: two-phase {n_two} of {rows}, first call {sec * 1e3:.1f} ms, "
           f"median {step * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms "
-          f"({n_two / step:.1f} splits/s), loops {stats}, phi_d2 launches {launches}")
-    check(launches == 0, f"{label}: the path launched phi_d2")
+          f"({n_two / step:.1f} splits/s), loops {stats}, kernel launches {launches}")
+    check(launches == 0, f"{label}: the path launched a kernel")
     check(n_two == rows, f"{label}: {n_two} of {rows} rows split (the oracle splits all)")
-    return out, {"launches": launches, "by_k": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
+    return out, {"launches": launches, "by_kernel": {}, "ms": step * 1e3, "first_ms": sec * 1e3,
                  "two_phase": n_two, "rows": rows, "loops": stats}
 
 
@@ -1561,21 +1768,21 @@ def flash_grad_run(flash_fn, leaves, x1):
 
 def timed_flash_grad(label, run, rows, out):
     """Phase 15(b, c): one call of ``run()`` (:func:`flash_grad_run`) on the
-    card.  Checks that it launched no phi_d2, split every row, gave finite
+    card.  Checks that it launched no kernel, split every row, gave finite
     gradients and the outputs ``out`` of the call without gradients bit for
     bit, and held the phase rule.  Returns its outputs, its gradients and
     the path's record."""
     (out_g, grads, anchors), sec, launches, _ = on_card(run)
     n_two = int((out_g[4] == 2).sum())
     print(f"phase 15 {label}: two-phase {n_two} of {rows}, one call with backward "
-          f"{sec * 1e3:.1f} ms ({n_two / sec:.1f} splits+gradients/s), phi_d2 launches "
+          f"{sec * 1e3:.1f} ms ({n_two / sec:.1f} splits+gradients/s), kernel launches "
           f"{launches}")
     check(launches == 0 and n_two == rows, f"{label}: launches or split rows")
     check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
     for a, b in zip(out_g, out):
         check(torch.equal(a, b), f"{label}: gradients=True changed an output")
     phase_rule(label, out_g, anchors)
-    return out_g, grads, {"launches": launches, "by_k": {}, "ms": sec * 1e3,
+    return out_g, grads, {"launches": launches, "by_kernel": {}, "ms": sec * 1e3,
                           "two_phase": n_two, "rows": rows}
 
 
@@ -1785,12 +1992,12 @@ def ternary_temperature(label, cell, dev, target):
     (nans, t, grads), sec, launches, _ = on_card(lambda: run(stats))
     n_ok = int((~nans).sum())
     print(f"phase 16 {label}: converged {n_ok} of {cell.rows}, one call with backward "
-          f"{sec * 1e3:.1f} ms ({n_ok / sec:.1f} solves+gradients/s), loops {stats}, phi_d2 "
+          f"{sec * 1e3:.1f} ms ({n_ok / sec:.1f} solves+gradients/s), loops {stats}, kernel "
           f"launches {launches}")
     check(launches == 0 and n_ok == cell.rows, f"{label}: launches or failed rows")
     check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
     recovers(label, t, temperature)
-    return {"launches": launches, "by_k": {}, "ms": sec * 1e3, "converged": n_ok,
+    return {"launches": launches, "by_kernel": {}, "ms": sec * 1e3, "converged": n_ok,
             "rows": cell.rows, "loops": stats}
 
 
@@ -1822,7 +2029,7 @@ def ternary_flash(label, cell, dev, p_bub, p_dew):
         out, sec, launches, _ = on_card(lambda: call(stats=stats))
     n_two = int((out[4] == 2).sum())
     print(f"phase 16 {label}: two-phase {n_two} of {cell.rows}, one call {sec * 1e3:.1f} ms "
-          f"({n_two / sec:.1f} splits/s), loops {stats}, phi_d2 launches {launches}")
+          f"({n_two / sec:.1f} splits/s), loops {stats}, kernel launches {launches}")
     check(launches == 0 and n_two == cell.rows, f"{label}: launches or split rows")
     flash_consistency(label, props, temperature, z, p, out)
 
@@ -1835,12 +2042,12 @@ def ternary_flash(label, cell, dev, p_bub, p_dew):
 
     (out_g, grads), sec_g, launches_g, _ = on_card(grad_run)
     print(f"phase 16 {label} with gradients: one call with backward {sec_g * 1e3:.1f} ms "
-          f"({n_two / sec_g:.1f} splits+gradients/s), phi_d2 launches {launches_g}")
-    check(launches_g == 0, f"{label}: launched phi_d2")
+          f"({n_two / sec_g:.1f} splits+gradients/s), kernel launches {launches_g}")
+    check(launches_g == 0, f"{label}: launched a kernel")
     check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite gradients")
     for a, b in zip(out_g, out):
         check(torch.equal(a.detach(), b), f"{label}: gradients=True changed an output")
-    return {"launches": launches + launches_g, "by_k": {}, "ms": sec * 1e3,
+    return {"launches": launches + launches_g, "by_kernel": {}, "ms": sec * 1e3,
             "grad_ms": sec_g * 1e3, "two_phase": n_two, "rows": cell.rows, "loops": stats}
 
 
@@ -1928,7 +2135,7 @@ def data_parallelism(dev, pure_fit, p_data, params_np, temperature_np, nans_vp, 
     without the mesh, held to each other within 1e-12; (c)
     data_parallel(vapor_pressure) on phase 5's rows padded with NaN rows to
     a multiple of DP_PAD, its rows held to phase 5's within 1e-12 and the
-    padded rows masked.  Each with its phi_d2 launches by k."""
+    padded rows masked.  Each with its kernel launches."""
     paths = {}
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1940,15 +2147,16 @@ def data_parallelism(dev, pure_fit, p_data, params_np, temperature_np, nans_vp, 
             # NCCL builds its communicator at the first collective: not a step's cost
             _, sec, _, _ = on_card(lambda: all_reduce_sum(torch.ones(1, device=dev), mesh))
             print(f"phase 17: NCCL group and first collective {sec * 1e3:.1f} ms")
-            start, data, ref, ref_step = pure_fit
-            res, sec, n, by_k = on_card(lambda: fit_pure(
+            start, data, ref, ref_step, ref_by = pure_fit
+            res, sec, n, by = on_card(lambda: fit_pure(
                 start, data[0], p_sat=data[1], rho_liq=data[2], pressure=data[1],
                 steps=FIT_STEPS, mesh=mesh))
-            paths["fit_pure mesh"] = launch_counts(sec, n, by_k)
+            paths["fit_pure mesh"] = launch_counts(sec, n, by)
             print(f"phase 17 fit_pure mesh: B={len(start)}, step {sec / FIT_STEPS * 1e3:.1f} ms "
-                  f"against phase 10's {ref_step * 1e3:.1f} ms, phi_d2 launches {n}, "
-                  f"by k {by_k}")
-            check(n > 0, "fit_pure with a mesh launched no phi_d2 kernel")
+                  f"against phase 10's {ref_step * 1e3:.1f} ms, launches {n}: {by}")
+            # the mesh adds collectives, no solver work: phase 10's launches
+            expect("fit_pure with a mesh", by,
+                   **{k: ref_by[k] for k in KERNELS})
             for what, a, b in (("loss history", res.loss_history, ref.loss_history),
                                ("parameters", res.parameters.flatten(),
                                 ref.parameters.flatten())):
@@ -1963,11 +2171,11 @@ def data_parallelism(dev, pure_fit, p_data, params_np, temperature_np, nans_vp, 
                                   epsilon_k_aibj0=900.0, steps=DP_STEPS, device=dev, mesh=m)
 
             plain, sec_plain, _, _ = on_card(lambda: binary(None))
-            res, sec, n, by_k = on_card(lambda: binary(mesh))
-            paths["fit_binary mesh"] = launch_counts(sec, n, by_k)
+            res, sec, n, by = on_card(lambda: binary(mesh))
+            paths["fit_binary mesh"] = launch_counts(sec, n, by)
             print(f"phase 17 fit_binary: {DP_STEPS} steps on {FIT_BINARY_ROWS} rows, "
                   f"{sec * 1e3:.1f} ms with the mesh, {sec_plain * 1e3:.1f} ms without, "
-                  f"losses {res.loss_history.tolist()}, phi_d2 launches {n}")
+                  f"losses {res.loss_history.tolist()}, launches {n}")
             for what, a, b in (("loss history", res.loss_history, plain.loss_history),
                                ("[kij, eps_AiBj]", res.parameters, plain.parameters)):
                 no = torch.zeros(b.shape, dtype=torch.bool)
@@ -1976,13 +2184,13 @@ def data_parallelism(dev, pure_fit, p_data, params_np, temperature_np, nans_vp, 
 
             padded = [pad_to_multiple(x, DP_PAD)[0] for x in (params_np, temperature_np)]
             with torch.no_grad():
-                (nans, vp), sec, n, by_k = on_card(
+                (nans, vp), sec, n, by = on_card(
                     lambda: data_parallel(vapor_pressure, mesh, 2)(*padded))
             paths["data_parallel vapor_pressure"] = report(
-                17, "data_parallel(vapor_pressure)", nans, sec, n, by_k)
+                17, "data_parallel(vapor_pressure)", nans, sec, n, by)
             check(len(nans) == len(padded[1]) > B and bool(nans[B:].all()),
                   "the padded rows are not masked")
-            check(n > 0, "data_parallel(vapor_pressure) launched no phi_d2 kernel")
+            expect("data_parallel(vapor_pressure)", by, pure_vle=1, vp_identity=1)
             agree("data_parallel(vapor_pressure)", nans[:B].cpu(), vp[:B].cpu(),
                   nans_vp.cpu(), p_sat.cpu(), 1e-12, ref="phase 5")
         finally:
@@ -2002,12 +2210,12 @@ def load_example(name):
 def examples(dev):
     """Phase 18: the six examples of examples_torch/ on the card, the fits
     at EXAMPLE_STEPS steps (each loss must fall), the diagrams at 51 points
-    (the dew curve must close), each with its seconds and phi_d2 launches."""
+    (the dew curve must close), each with its seconds and kernel launches."""
     paths = {}
     for name in EXAMPLES:
         module = load_example(name)
         kwargs = {"steps": EXAMPLE_STEPS[name]} if name in EXAMPLE_STEPS else {}
-        out, sec, n, by_k = on_card(lambda: module.main(device=dev, **kwargs))
+        out, sec, n, by = on_card(lambda: module.main(device=dev, **kwargs))
         if name.endswith("diagram"):
             n_points = len(out.x1)
             system = f64(np.tile([module.PROPANE, module.BUTANE], (n_points, 1, 1)), dev)
@@ -2016,7 +2224,7 @@ def examples(dev):
                 closes(name, dew, torch.full_like(out.p, module.T), out.y1, out.p)
             else:
                 closes(name, dew, out.t, out.y1, torch.full_like(out.t, module.P))
-            check(n > 0, f"{name}: the pure seeds launched no phi_d2")
+            expect(f"{name} pure seeds", by, pure_vle="some", vp_identity=by["pure_vle"])
             summary = f"{n_points} points"
         else:
             # a FitResult, or (parameters, loss history) of the examples' own loops
@@ -2025,8 +2233,8 @@ def examples(dev):
             check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
                   f"{name}: the loss does not fall: {losses.tolist()}")
             summary = f"losses {np.asarray(losses).tolist()}"
-        print(f"phase 18 {name}: {sec:.1f} s, {summary}, phi_d2 launches {n}, by k {by_k}")
-        paths[f"example {name}"] = launch_counts(sec, n, by_k)
+        print(f"phase 18 {name}: {sec:.1f} s, {summary}, launches {n}: {by}")
+        paths[f"example {name}"] = launch_counts(sec, n, by)
     return paths
 
 
@@ -2064,15 +2272,16 @@ def main():
     params_np, temperature_np = make_batch(B, seed=0)
     params, temperature = f64(params_np, dev), f64(temperature_np, dev)
     kernel = kernel_vs_plain(dev, params, temperature)
+    vle_kernel, solved = pure_vle_vs_plain(params, temperature)
+    vp_kernel = vp_identity_vs_plain(params, temperature, *solved)
     lap("3")
     readme_anchors(dev)
     lap("4")
-    launches, by_k, nans_vp, p_sat = main_path(dev, params, temperature, power)
+    main_record, nans_vp, p_sat = main_path(dev, params, temperature, power)
     lap("5")
 
     # phases 6-10: the rest of the pure-component surface on the same rows
-    paths = {"vapor_pressure": {"launches": launches,
-                                "by_k": {str(k): n for k, n in sorted(by_k.items())}}}
+    paths = {"vapor_pressure": main_record}
     nans_l, rho_l, liquid_paths = liquid_densities(params, temperature, p_sat)
     paths.update(liquid_paths)
     lap("6")
@@ -2085,19 +2294,19 @@ def main():
     paths["fit_pure"], pure_fit = fit(params_np, temperature, p_sat, rho_l)
     lap("10")
 
-    # phases 11-12: binary mixtures (torch ops only: no phi_d2 launch)
+    # phases 11-12: binary mixtures (torch ops only: no kernel launch)
     paths["mix_derivatives"] = mixture_derivatives(dev)
     lap("11")
     paths.update(mixtures(dev))
     lap("12")
 
-    # phase 13: gc-PC-SAFT (torch ops only: no phi_d2 launch)
+    # phase 13: gc-PC-SAFT (torch ops only: no kernel launch)
     paths["gc_derivatives"] = gc_derivative_set(dev)
     paths.update(gc_mixtures(dev))
     lap("13")
 
     # phase 14: the binary workload on bubble and dew points (torch ops; the
-    # diagrams' pure seeds launch phi_d2)
+    # diagrams' pure seeds launch pure_vle and vp_identity)
     t14 = time.perf_counter()
     mix_paths, fit_data, mix_states = mixture_temperatures(dev)
     paths.update(mix_paths)
@@ -2115,7 +2324,7 @@ def main():
           f"(c) {t14d - t14c:.1f}, (d) {t14e - t14d:.1f}, (e) {done - t14e:.1f}")
     lap("14")
 
-    # phase 15: the isothermal pT flash (torch ops: no phi_d2 launch)
+    # phase 15: the isothermal pT flash (torch ops: no kernel launch)
     t15 = time.perf_counter()
     flash_paths, times = mixture_flash(dev)
     paths.update(flash_paths)
@@ -2127,7 +2336,7 @@ def main():
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(times.items())))
     lap("15")
 
-    # phase 16: n-component mixtures (torch ops: no phi_d2 launch)
+    # phase 16: n-component mixtures (torch ops: no kernel launch)
     t16 = time.perf_counter()
     ternary_paths, times, _ = ternaries(dev)
     paths.update(ternary_paths)
@@ -2146,24 +2355,34 @@ def main():
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main; "
           f"seconds by phase {seconds}")
 
+    # phi_d2's path is now liquid_density's NPT solve (k = 1): the main path
+    # launches pure_vle and vp_identity, and phi_d2 no more
     shapes = kernel["shapes"]
-    ref = shapes["(B, 2)"]  # the most launched shape, with (B, 1)
-    print(json.dumps({"kernels": [{
-        "name": "phi_d2",
-        "route": "cuda",
-        "source": "feos_tpu_torch/csrc/phi_d2.cu",
-        "replaces": "benchmarks/pallas_experiment.py:158",
-        "launches": launches,
-        "launches_by_k": {str(k): n for k, n in sorted(by_k.items())},
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": ref["ms"],
-        "plain_ms": ref["plain_ms"],
-        "bound_ms": ref["bound_ms"],
-        "bound_by": ref["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes phi, phi', phi''
-        "shapes": shapes,
-        "launches_by_path": paths,
-    }]}))
+    ref = shapes["(B, 1)"]
+    phi_path = paths["liquid_density"]
+    main_by = main_record["by_kernel"]
+
+    def entry(name, source, replaces, launches, record, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": record["max_abs_err"],
+                "ms": record["ms"], "plain_ms": record["plain_ms"],
+                "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
+                # no single PyTorch call computes phi, phi', phi'', a VLE or
+                # the identity's partials
+                "library_ms": None, **extra}
+
+    print(json.dumps({"kernels": [
+        entry("phi_d2", "feos_tpu_torch/csrc/phi_d2.cu", "benchmarks/pallas_experiment.py:158",
+              phi_path["by_kernel"]["phi_d2"], {**ref, "max_abs_err": kernel["max_abs_err"]},
+              launches_path="liquid_density (phase 6)",
+              launches_by_k=phi_path["by_kernel"]["phi_d2_by_k"], shapes=shapes,
+              launches_by_path=paths),
+        entry("pure_vle", "feos_tpu_torch/csrc/pure_vle.cu", "feos_tpu/solvers/vle.py:409",
+              main_by["pure_vle"], vle_kernel, launches_path="vapor_pressure (phase 5)"),
+        entry("vp_identity", "feos_tpu_torch/csrc/vp_identity.cu",
+              "feos_tpu/models/pcsaft_pure.py:446", main_by["vp_identity"], vp_kernel,
+              launches_path="vapor_pressure (phase 5)"),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,10 @@ or more associating components raise ``ValueError``.
 * :mod:`feos_tpu_torch.compat` -- the reference's numpy contract
   (``PcSaft``, ``GcPcSaft``);
 * :func:`phi_d2` -- the hand-written CUDA kernel behind the solvers' phi
-  evaluations (its plain PyTorch version on CPU tensors).
+  evaluations (its plain PyTorch version on CPU tensors); two more carry the
+  main path on the card: ``kernels.pure_vle`` (the whole pure VLE solve, a
+  thread a row) and ``kernels.vp_identity`` (the vapor-pressure identity
+  and its partials, the backward of :func:`vapor_pressure`).
 
 Every function takes its device from its tensors or from a ``device``
 argument, which defaults to ``"cuda"``: the entry points run on the card

@@ -93,25 +93,31 @@ FEOS_HD D3 times_rho(real rho, D3 x) {
 FEOS_HD D3 rho_squared(real rho) { return {rho * rho, 2.0 * rho, 1.0}; }
 
 // Density-free constants of one parameter row at one temperature: the
-// fields of feos_tpu's PurePre, in its order.
-struct RowConsts {
-    real m;         // segment number
-    real eta_m;     // pi/6 m d^3 with d the temperature-dependent diameter
-    real c_i1[7];   // I1 eta-polynomial coefficients
-    real c_i2[7];   // I2 eta-polynomial coefficients
-    real me;        // m eps/T
-    real m2es3;     // m^2 (eps/T) sigma^3
-    real c_j1[5];   // dipole J1 coefficients ad + bd eps/T
-    real c_j2[4];   // dipole J2 coefficients
-    real inv_s3;    // 1 / sigma^3
-    real mu2eff;    // reduced, T-scaled mu^2: mu^2 MU2_FACTOR / (m T)
-    real delta_t;   // (exp(eps_ab/T) - 1) sigma^3 kappa_ab
-    real na, nb;
+// fields of feos_tpu's PurePre, in its order.  Generic over the scalar S so
+// that vp_identity.cuh can carry parameter tangents through the row stage;
+// the density stage below takes RowConsts, S = real.
+template <class S>
+struct RowConstsT {
+    S m;         // segment number
+    S eta_m;     // pi/6 m d^3 with d the temperature-dependent diameter
+    S c_i1[7];   // I1 eta-polynomial coefficients
+    S c_i2[7];   // I2 eta-polynomial coefficients
+    S me;        // m eps/T
+    S m2es3;     // m^2 (eps/T) sigma^3
+    S c_j1[5];   // dipole J1 coefficients ad + bd eps/T
+    S c_j2[4];   // dipole J2 coefficients
+    S inv_s3;    // 1 / sigma^3
+    S mu2eff;    // reduced, T-scaled mu^2: mu^2 MU2_FACTOR / (m T)
+    S delta_t;   // (exp(eps_ab/T) - 1) sigma^3 kappa_ab
+    S na, nb;
 };
+using RowConsts = RowConstsT<real>;
 
 // The row stage for par = [m, sigma, epsilon_k, mu, kappa_ab, epsilon_k_ab,
-// na, nb] at temperature T (precompute_pure).
-FEOS_HD RowConsts row_consts(const double* par, double temperature) {
+// na, nb] at temperature T (precompute_pure), in the scalar S; the entries
+// of par convert to S.
+template <class S, class P>
+FEOS_HD RowConstsT<S> row_consts_of(const P* par, S temperature) {
     // universal constants (Gross & Sadowski 2001; Gross & Vrabec 2006),
     // feos_tpu/constants.py; local so that device code may index them
     const double A0[7] = {0.91056314451539, 0.63612814494991, 2.68613478913903,
@@ -145,21 +151,21 @@ FEOS_HD RowConsts row_consts(const double* par, double temperature) {
                              {-0.80875619458, -2.38026356489, 1.65427830900},
                              {0.69028490492, -0.27012609786, -3.43967436378}};
 
-    const real m = par[0], sigma = par[1], eps_k = par[2], mu = par[3];
-    const real kappa_ab = par[4], eps_k_ab = par[5];
-    const real inv_t = 1.0 / real(temperature);
-    const real e = eps_k * inv_t;
-    const real s3 = sigma * sigma * sigma;
-    const real inv_m = 1.0 / m;
-    const real m1 = (m - 1.0) * inv_m;
-    const real m2 = (m - 2.0) * inv_m;
-    const real mc = fmin(m, real(2.0));
-    const real inv_mc = 1.0 / mc;
-    const real md1 = (mc - 1.0) * inv_mc;
-    const real md2 = md1 * (mc - 2.0) * inv_mc;
-    const real d = sigma * (1.0 - 0.12 * exp(-3.0 * e));
+    const S m = par[0], sigma = par[1], eps_k = par[2], mu = par[3];
+    const S kappa_ab = par[4], eps_k_ab = par[5];
+    const S inv_t = 1.0 / temperature;
+    const S e = eps_k * inv_t;
+    const S s3 = sigma * sigma * sigma;
+    const S inv_m = 1.0 / m;
+    const S m1 = (m - 1.0) * inv_m;
+    const S m2 = (m - 2.0) * inv_m;
+    const S mc = fmin(m, S(2.0));
+    const S inv_mc = 1.0 / mc;
+    const S md1 = (mc - 1.0) * inv_mc;
+    const S md2 = md1 * (mc - 2.0) * inv_mc;
+    const S d = sigma * (1.0 - 0.12 * exp(-3.0 * e));
 
-    RowConsts rc;
+    RowConstsT<S> rc;
     rc.m = m;
     rc.eta_m = kPi / 6.0 * m * (d * d * d);
     for (int i = 0; i < 7; ++i) {
@@ -169,7 +175,7 @@ FEOS_HD RowConsts row_consts(const double* par, double temperature) {
     rc.me = m * e;
     rc.m2es3 = m * rc.me * s3;
     for (int i = 0; i < 5; ++i) {
-        const real a = AD[i][0] + md1 * AD[i][1] + md2 * AD[i][2];
+        const S a = AD[i][0] + md1 * AD[i][1] + md2 * AD[i][2];
         rc.c_j1[i] = i < 3 ? a + (BD[i][0] + md1 * BD[i][1] + md2 * BD[i][2]) * e : a;
     }
     for (int i = 0; i < 4; ++i)
@@ -181,6 +187,11 @@ FEOS_HD RowConsts row_consts(const double* par, double temperature) {
     rc.na = par[6];
     rc.nb = par[7];
     return rc;
+}
+
+// The row stage in the scalar real, as the density stage below takes it.
+FEOS_HD RowConsts row_consts(const double* par, double temperature) {
+    return row_consts_of<real>(par, real(temperature));
 }
 
 // What the terms share at one density rho: eta = eta_m rho, its powers, and

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..constants import A0, A1, A2, B0, B1, B2, AD, BD, CD
+from ..kernels.vp_identity import attach as attach_identity
 from ..ops.derivatives import value_and_2derivs
 from ..units import (
     KMOL_M3_TO_REDUCED, MU2_FACTOR, PA_PER_KT_TO_REDUCED, REDUCED_TO_PA_PER_KT,
@@ -254,8 +255,12 @@ def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
 
         p~ = -(a_V - a_L + ln(rho_V/rho_L)) / (1/rho_V - 1/rho_L)
 
-    which is stationary in both converged densities, so autograd through it
-    gives the implicit-function derivative of the solve.
+    which is stationary in both converged densities, so its derivative at
+    fixed densities is the implicit-function derivative of the solve.  On
+    the card the solve is the ``pure_vle`` kernel and the identity the
+    ``vp_identity`` kernel, whose partials are the backward; on the CPU
+    they are their torch-ops versions (``pure_vle_plain`` and autograd
+    through the identity's graph).
 
     Returns ``(nans, p)``: ``nans`` flags failed rows, where ``p`` is NaN.
     """
@@ -268,10 +273,7 @@ def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
     rho_v = torch.where(ok, rho_v, 1e-5)
     rho_l = torch.where(ok, rho_l, 1e-3)
 
-    p = PureParams.from_tensor(parameters)
-    a_l = phi_pure(p, temperature, rho_l) / rho_l
-    a_v = phi_pure(p, temperature, rho_v) / rho_v
-    p_red = -(a_v - a_l + torch.log(rho_v / rho_l)) / (1.0 / rho_v - 1.0 / rho_l)
+    p_red = attach_identity(parameters, temperature, rho_v, rho_l)
     pressure = p_red * temperature * REDUCED_TO_PA_PER_KT
     return ~ok, torch.where(ok, pressure, torch.nan)
 

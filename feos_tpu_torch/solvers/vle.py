@@ -12,10 +12,12 @@ iterations, tolerances and residual acceptance, on ``(B, ...)`` tensors.
   not done and under its iteration cap, and only active rows take the
   update.  The loop stops when no row is active (one host sync per
   iteration).
-* Every pure phi evaluation goes through the ``phi_d2`` kernel wrapper,
-  except the critical Newton's, which needs phi''' and T-derivatives and
-  runs ``phi_pure`` in torch ops (as the JAX package runs it outside
-  Pallas).  The mixture solver takes phi closures in torch ops.
+* On the card ``pure_vle`` is one launch of the ``pure_vle`` kernel, a
+  thread a row; ``pure_vle_plain`` is its torch-ops twin, and runs on the
+  CPU.  Every other pure phi evaluation goes through the ``phi_d2`` kernel
+  wrapper, except the critical Newton's, which needs phi''' and
+  T-derivatives and runs ``phi_pure`` in torch ops (as the JAX package runs
+  it outside Pallas).  The mixture solver takes phi closures in torch ops.
 * Failures are a boolean ``ok`` per row on fixed shapes, never exceptions.
 * Everything runs under ``torch.no_grad()`` on detached inputs; gradients
   re-attach outside, through stationary identities.
@@ -31,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import pure_vle as _pure_vle_kernel
 from ..kernels.phi_d2 import phi_d2
 from ..models.pcsaft_pure import PureParams, phi_pure, precompute_pure
 
@@ -311,11 +314,25 @@ def pure_vle(params, temperature, stats=None):
     Solves p~(rho_V) = p~(rho_L), mu~(rho_V) = mu~(rho_L) by a damped 2x2
     Newton in (ln rho_V, ln rho_L) and accepts rows on their residuals.
 
+    On the card the whole solve is one launch of the ``pure_vle`` kernel
+    (:mod:`feos_tpu_torch.kernels.pure_vle`); on the CPU it is
+    :func:`pure_vle_plain`, the same algorithm in torch ops.  ``stats``, if
+    a dict, receives what the path taken reports (see both).
+
+    Returns ``(rho_v, rho_l, ok)``; supercritical rows are masked.
+    """
+    return _pure_vle_kernel.pure_vle(params.detach().contiguous(),
+                                     temperature.detach().contiguous(), stats=stats)
+
+
+@torch.no_grad()
+def pure_vle_plain(params, temperature, stats=None):
+    """:func:`pure_vle` in torch ops on any device: batched loops over
+    ``phi_d2`` calls, the plain version of the ``pure_vle`` kernel.
+
     If ``stats`` is a dict, it receives the number of batch iterations of
     each loop; each iteration is one ``phi_d2`` call, and so is the
     spinodal scan, so ``stats["phi_d2_calls"]`` is the solve's call count.
-
-    Returns ``(rho_v, rho_l, ok)``; supercritical rows are masked.
     """
     params = params.detach().contiguous()
     temperature = temperature.detach().contiguous()
