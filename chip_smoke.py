@@ -3,10 +3,12 @@
 Builds the port's CUDA kernels from the sources in this checkout and holds
 each against its plain PyTorch version, timed beside its bound (phase 3):
 the variant of phi_d2 each of the solver's density shapes launches, the
-pure_vle kernel (the whole pure VLE solve, a thread a row) against
-``pure_vle_plain`` and the vp_identity kernel (the vapor-pressure identity
-and its 9 partials) against autograd of its plain graph, both on 100,000
-``make_batch`` rows.  It checks the README anchors through both kernels,
+pure_vle kernels (the whole pure VLE solve: a spinodal scan with 16 threads
+a row, then a solve with one thread a row; each stage also timed alone)
+against ``pure_vle_plain`` and the vp_identity kernel (the vapor-pressure
+identity and its 9 partials by a hand-written adjoint) against autograd of
+its plain graph, both on 100,000 ``make_batch`` rows, with the registers,
+spills and resident warps an SM of each of these kernels.  It checks the README anchors through both kernels,
 then drives the main path at full size: vapor pressures of a 100,000-row
 ``make_batch`` with reverse-mode gradients with respect to all 8
 parameters of every row, one pure_vle and one vp_identity launch and no
@@ -77,6 +79,7 @@ times and its bound.  Without CUDA the script exits nonzero and prints no
 result.
 """
 
+import ctypes
 import importlib.util
 import json
 import re
@@ -149,19 +152,19 @@ BYTES_ELEMENT = 32
 # mask and three int32 counters out; the 48 grid points once
 BYTES_VLE_ROW = 72 + 16 + 1 + 12
 PURE_VLE_RTOL = 1e-10    # rho_V, rho_L of the kernel against pure_vle_plain
-# f64 operations vp_identity needs a row: p~ and its 9 partials in the 9-slot
-# dual, tallied without the operations on exact zeros (the tangents a
-# quantity does not depend on) by csrc/vp_identity_ops.cpp: a non-polar,
-# non-associating row; what a dipole and the two-site association add (fewer
-# where na = nb, whose rho_a - rho_b is 0); and what a row with m > 2 saves
-# (md2 = 0 there, with its tangents).  tests/test_torch_vp_identity_kernel.py
+# f64 operations vp_identity needs a row: p~ and its 9 partials by the
+# adjoint, tallied without the operations on exact zeros by
+# csrc/vp_identity_ops.cpp: a non-polar, non-associating row; what a dipole
+# and the two-site association add (fewer where na = nb, whose rho_a - rho_b
+# is 0); and what a row with m > 2 saves (mc = 2 there: md2 is 0, and md1's
+# and md2's adjoints stop at mc).  tests/test_torch_vp_identity_kernel.py
 # holds vp_identity_ops() to the tally of the header row by row.
-OPS_VP_ROW = 1473
-OPS_VP_DIPOLE = 399
-OPS_VP_ASSOC = 583
-OPS_VP_ASSOC_SYMMETRIC = 463
-OPS_VP_SAVED_M2 = 78
-OPS_VP_SAVED_M2_DIPOLE = 36
+OPS_VP_ROW = 630
+OPS_VP_DIPOLE = 384
+OPS_VP_ASSOC = 173
+OPS_VP_ASSOC_SYMMETRIC = 151
+OPS_VP_SAVED_M2 = 4
+OPS_VP_SAVED_M2_DIPOLE = 52
 # bytes vp_identity must move a row: 8 parameters, T, rho_V, rho_L in; p~
 # and 9 partials out
 BYTES_VP_ROW = 21 * 8
@@ -376,8 +379,59 @@ def probe_f64(out_dir):
 
 def kernel_name(mangled):
     """``phi_d2_elem`` from a mangled kernel name."""
-    m = re.search(r"\d(phi_d2_[a-z]+|pure_vle_kernel|vp_identity_kernel)", mangled)
+    m = re.search(r"\d(phi_d2_[a-z]+|pure_vle_[a-z]+|vp_identity_kernel)", mangled)
     return m.group(1) if m else mangled
+
+
+def resources(log):
+    """``{kernel: {"registers", "stack", "spill_stores", "spill_loads"}}``
+    from nvcc's ``--resource-usage`` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+# the main path's kernels: registers from nvcc's report, resident blocks an
+# SM from the library (128 threads a block, 4 warps)
+MAIN_KERNELS = ("pure_vle_scan", "pure_vle_solve", "vp_identity_kernel")
+MIN_SOLVE_WARPS = 16
+
+
+def main_kernel_resources(log):
+    """Registers, stack frame, spills and resident blocks and warps an SM of
+    each of MAIN_KERNELS; none may spill or keep a stack frame, and the
+    pure_vle solve must keep MIN_SOLVE_WARPS warps an SM."""
+    lib = build.library()
+    blocks, vp_blocks = (ctypes.c_int * 2)(), (ctypes.c_int * 1)()
+    check(lib.feos_pure_vle_occupancy(0, blocks) == 0, "pure_vle occupancy query failed")
+    check(lib.feos_vp_identity_occupancy(0, vp_blocks) == 0,
+          "vp_identity occupancy query failed")
+    res = resources(log)
+    out = {}
+    for name, n in zip(MAIN_KERNELS, (blocks[0], blocks[1], vp_blocks[0])):
+        out[name] = {**res[name], "blocks_per_sm": n, "warps_per_sm": 4 * n}
+        r = out[name]
+        print(f"  {name}: {r['registers']} registers, {r['stack']} bytes stack frame, "
+              f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads; "
+              f"{n} blocks = {4 * n} warps an SM")
+        check(r["stack"] == 0 and r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"{name} keeps a stack frame or spills")
+    check(out["pure_vle_solve"]["warps_per_sm"] >= MIN_SOLVE_WARPS,
+          f"the pure_vle solve keeps fewer than {MIN_SOLVE_WARPS} warps an SM")
+    return out
 
 
 def variant(k):
@@ -452,7 +506,7 @@ def vle_work(params, temperature, iters):
 def vp_identity_ops(params):
     """The f64 operations ``vp_identity`` needs for each row, ``(B,)``: the
     OPS_VP_* counts of the row's terms.  The association term runs where
-    kappa_ab or eps_ab is not 0 (its tangents are not 0 there); a row with
+    kappa_ab or eps_ab is not 0 (its partials are not 0 there); a row with
     only one of them 0 (none in make_batch) needs fewer than counted."""
     m, mu, kappa_ab, eps_ab, na, nb = (params[:, j] for j in (0, 3, 4, 5, 6, 7))
     dipolar = (mu != 0.0).long()
@@ -515,6 +569,29 @@ def kernel_vs_plain(dev, params, temperature):
     return result
 
 
+def pure_vle_stages(params, temperature):
+    """``(scan, solve)``: callables that launch one of the pure_vle kernels'
+    two stages alone, on buffers of their own, the solve on the scan's
+    result; for timing each stage.  Not counted as launches."""
+    lib = build.library()
+    B, dev = len(temperature), temperature.device
+    grid = f64(_ETA_GRID, dev)
+    spinodal = torch.empty((B, 3), dtype=torch.float64, device=dev)
+    outs = (torch.empty(B, dtype=torch.float64, device=dev),
+            torch.empty(B, dtype=torch.float64, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev),
+            torch.empty((B, 3), dtype=torch.int32, device=dev))
+
+    def run(stages):
+        err = lib.feos_pure_vle(params.data_ptr(), temperature.data_ptr(), grid.data_ptr(),
+                                spinodal.data_ptr(), *(o.data_ptr() for o in outs), B, stages,
+                                dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"pure_vle stage {stages} launch failed: cudaError {err}")
+
+    run(1)
+    return (lambda: run(1)), (lambda: run(2))
+
+
 def pure_vle_vs_plain(params, temperature):
     """Phase 3: the pure_vle kernel against pure_vle_plain on the card
     (which launches phi_d2) on phase 5's rows: equal masks, rho_V and rho_L
@@ -545,18 +622,37 @@ def pure_vle_vs_plain(params, temperature):
           f"{torch.quantile(evals.double(), q).tolist()}, mean {float(evals.double().mean()):.2f}; "
           f"lanes busy in a warp {lanes:.3f}")
     check(rel <= PURE_VLE_RTOL, "pure_vle kernel off pure_vle_plain")
+    # in turns: plain, kernels, scan, solve, solve, scan, kernels, plain
+    scan, solve = pure_vle_stages(params, temperature)
     plain_1 = cuda_ms(lambda: pure_vle_plain(params, temperature), 2)
     kern_1 = cuda_ms(lambda: pure_vle_kernel.launch(params, temperature), 10)
+    scan_1, solve_1 = cuda_ms(scan, 10), cuda_ms(solve, 10)
+    solve_2, scan_2 = cuda_ms(solve, 10), cuda_ms(scan, 10)
     kern_2 = cuda_ms(lambda: pure_vle_kernel.launch(params, temperature), 10)
     plain_2 = cuda_ms(lambda: pure_vle_plain(params, temperature), 2)
     kern, plain = (kern_1 + kern_2) / 2, (plain_1 + plain_2) / 2
     ops, nbytes = vle_work(params, temperature, iters)
     bound_ms, bound_by = bound_of(ops, nbytes)
-    print(f"pure_vle: kernel {kern:.4f} ms ({kern_1:.4f}, {kern_2:.4f}), plain {plain:.1f} ms "
+    print(f"pure_vle: kernels {kern:.4f} ms ({kern_1:.4f}, {kern_2:.4f}), plain {plain:.1f} ms "
           f"({plain_1:.1f}, {plain_2:.1f}), bound {bound_ms:.5f} ms ({bound_by}: {ops:.4e} f64 "
           f"operations), share of bound {bound_ms / kern:.3f}")
+    # each stage alone: its evaluations, the row stage once; the scan hands
+    # the solve 3 doubles a row
+    stages, handover = {}, len(ok) * 3 * 8
+    for name, times, evals_a_row, stage_bytes in (
+            ("scan", (scan_1, scan_2), torch.full_like(evals, 48),
+             len(ok) * BYTES_ROW + len(_ETA_GRID) * 8 + handover),
+            ("solve", (solve_1, solve_2), evals - 48, nbytes - len(_ETA_GRID) * 8 + handover)):
+        ms = sum(times) / 2
+        stage_ops, _ = vle_work(params, temperature, evals_a_row[:, None].expand(-1, 3))
+        stage_bound, stage_by = bound_of(stage_ops, stage_bytes)
+        stages[name] = {"ms": ms, "bound_ms": stage_bound, "bound_by": stage_by,
+                        "share": stage_bound / ms}
+        print(f"  pure_vle {name} stage alone: {ms:.4f} ms ({times[0]:.4f}, {times[1]:.4f}), "
+              f"bound {stage_bound:.5f} ms ({stage_by}), share of bound {stage_bound / ms:.3f}")
     record = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-              "share": bound_ms / kern, "max_abs_err": abs_err, "max_rel_err": rel,
+              "share": bound_ms / kern, "stages": stages, "max_abs_err": abs_err,
+              "max_rel_err": rel,
               "kernel_maxima": {"npt": int(npt.max()), "newton": int(newton.max())},
               "plain_loops": {"npt": stats["npt"], "newton": stats["newton"]},
               "mean_evaluations": float(evals.double().mean()), "lanes_busy": lanes}
@@ -2263,6 +2359,7 @@ def main():
     for mangled, (total, f64_all, f64_run) in sass_f64(built["path"]).items():
         print(f"  sass {kernel_name(mangled)}: {total} instructions, {f64_all} f64, "
               f"{f64_run} f64 up to its first exit")
+    main_resources = main_kernel_resources(built["log"])
     probes = probe_f64(built["path"].parent)
     print(f"  f64 instructions run: row stage {probes['row']}, at each density "
           f"{probes['base']} (hard sphere, chain, dispersion) + {probes['dipole']} "
@@ -2273,7 +2370,9 @@ def main():
     params, temperature = f64(params_np, dev), f64(temperature_np, dev)
     kernel = kernel_vs_plain(dev, params, temperature)
     vle_kernel, solved = pure_vle_vs_plain(params, temperature)
+    vle_kernel["resources"] = {k: main_resources[k] for k in MAIN_KERNELS[:2]}
     vp_kernel = vp_identity_vs_plain(params, temperature, *solved)
+    vp_kernel["resources"] = main_resources["vp_identity_kernel"]
     lap("3")
     readme_anchors(dev)
     lap("4")
@@ -2378,10 +2477,11 @@ def main():
               launches_by_k=phi_path["by_kernel"]["phi_d2_by_k"], shapes=shapes,
               launches_by_path=paths),
         entry("pure_vle", "feos_tpu_torch/csrc/pure_vle.cu", "feos_tpu/solvers/vle.py:409",
-              main_by["pure_vle"], vle_kernel, launches_path="vapor_pressure (phase 5)"),
+              main_by["pure_vle"], vle_kernel, launches_path="vapor_pressure (phase 5)",
+              stages=vle_kernel["stages"], resources=vle_kernel["resources"]),
         entry("vp_identity", "feos_tpu_torch/csrc/vp_identity.cu",
               "feos_tpu/models/pcsaft_pure.py:446", main_by["vp_identity"], vp_kernel,
-              launches_path="vapor_pressure (phase 5)"),
+              launches_path="vapor_pressure (phase 5)", resources=vp_kernel["resources"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -92,94 +92,94 @@ FEOS_HD D3 times_rho(real rho, D3 x) {
 }
 FEOS_HD D3 rho_squared(real rho) { return {rho * rho, 2.0 * rho, 1.0}; }
 
-// Density-free constants of one parameter row at one temperature: the
-// fields of feos_tpu's PurePre, in its order.  Generic over the scalar S so
-// that vp_identity.cuh can carry parameter tangents through the row stage;
-// the density stage below takes RowConsts, S = real.
-template <class S>
-struct RowConstsT {
-    S m;         // segment number
-    S eta_m;     // pi/6 m d^3 with d the temperature-dependent diameter
-    S c_i1[7];   // I1 eta-polynomial coefficients
-    S c_i2[7];   // I2 eta-polynomial coefficients
-    S me;        // m eps/T
-    S m2es3;     // m^2 (eps/T) sigma^3
-    S c_j1[5];   // dipole J1 coefficients ad + bd eps/T
-    S c_j2[4];   // dipole J2 coefficients
-    S inv_s3;    // 1 / sigma^3
-    S mu2eff;    // reduced, T-scaled mu^2: mu^2 MU2_FACTOR / (m T)
-    S delta_t;   // (exp(eps_ab/T) - 1) sigma^3 kappa_ab
-    S na, nb;
+// The universal constants (Gross & Sadowski 2001; Gross & Vrabec 2006),
+// feos_tpu/constants.py: the dispersion's a_k[i] and b_k[i] (I1's and I2's
+// coefficients are a_0 + m1 (a_1 + m2 a_2), m1 = (m - 1)/m, m2 = (m - 2)/m)
+// and the dipole's ad, bd, cd.  Returned by a function, not held at
+// namespace scope, so that device code may index them.
+struct Universal {
+    double a[3][7], b[3][7];
+    double ad[5][3], bd[3][3], cd[4][3];
 };
-using RowConsts = RowConstsT<real>;
+
+FEOS_HD Universal universal() {
+    return {{{0.91056314451539, 0.63612814494991, 2.68613478913903, -26.5473624914884,
+              97.7592087835073, -159.591540865600, 91.2977740839123},
+             {-0.30840169182720, 0.18605311591713, -2.50300472586548, 21.4197936296668,
+              -65.2558853303492, 83.3186804808856, -33.7469229297323},
+             {-0.09061483509767, 0.45278428063920, 0.59627007280101, -1.72418291311787,
+              -4.13021125311661, 13.7766318697211, -8.67284703679646}},
+            {{0.72409469413165, 2.23827918609380, -4.00258494846342, -21.00357681484648,
+              26.8556413626615, 206.5513384066188, -355.60235612207947},
+             {-0.57554980753450, 0.69950955214436, 3.89256733895307, -17.21547164777212,
+              192.6722644652495, -161.8264616487648, -165.2076934555607},
+             {0.09768831158356, -0.25575749816100, -9.15585615297321, 20.64207597439724,
+              -38.80443005206285, 93.6267740770146, -29.66690558514725}},
+            {{0.30435038064, 0.95346405973, -1.16100802773},
+             {-0.13585877707, -1.83963831920, 4.52586067320},
+             {1.44933285154, 2.01311801180, 0.97512223853},
+             {0.35569769252, -7.37249576667, -12.2810377713},
+             {-2.06533084541, 8.23741345333, 5.93975747420}},
+            {{0.21879385627, -0.58731641193, 3.48695755800},
+             {-1.18964307357, 1.24891317047, -14.9159739347},
+             {1.16268885692, -0.50852797392, 15.3720218600}},
+            {{-0.06467735252, -0.95208758351, -0.62609792333},
+             {0.19758818347, 2.99242575222, 1.29246858189},
+             {-0.80875619458, -2.38026356489, 1.65427830900},
+             {0.69028490492, -0.27012609786, -3.43967436378}}};
+}
+
+// Density-free constants of one parameter row at one temperature: the
+// fields of feos_tpu's PurePre, in its order.
+struct RowConsts {
+    real m;         // segment number
+    real eta_m;     // pi/6 m d^3 with d the temperature-dependent diameter
+    real c_i1[7];   // I1 eta-polynomial coefficients
+    real c_i2[7];   // I2 eta-polynomial coefficients
+    real me;        // m eps/T
+    real m2es3;     // m^2 (eps/T) sigma^3
+    real c_j1[5];   // dipole J1 coefficients ad + bd eps/T
+    real c_j2[4];   // dipole J2 coefficients
+    real inv_s3;    // 1 / sigma^3
+    real mu2eff;    // reduced, T-scaled mu^2: mu^2 MU2_FACTOR / (m T)
+    real delta_t;   // (exp(eps_ab/T) - 1) sigma^3 kappa_ab
+    real na, nb;
+};
 
 // The row stage for par = [m, sigma, epsilon_k, mu, kappa_ab, epsilon_k_ab,
-// na, nb] at temperature T (precompute_pure), in the scalar S; the entries
-// of par convert to S.
-template <class S, class P>
-FEOS_HD RowConstsT<S> row_consts_of(const P* par, S temperature) {
-    // universal constants (Gross & Sadowski 2001; Gross & Vrabec 2006),
-    // feos_tpu/constants.py; local so that device code may index them
-    const double A0[7] = {0.91056314451539, 0.63612814494991, 2.68613478913903,
-                          -26.5473624914884, 97.7592087835073, -159.591540865600,
-                          91.2977740839123};
-    const double A1[7] = {-0.30840169182720, 0.18605311591713, -2.50300472586548,
-                          21.4197936296668, -65.2558853303492, 83.3186804808856,
-                          -33.7469229297323};
-    const double A2[7] = {-0.09061483509767, 0.45278428063920, 0.59627007280101,
-                          -1.72418291311787, -4.13021125311661, 13.7766318697211,
-                          -8.67284703679646};
-    const double B0[7] = {0.72409469413165, 2.23827918609380, -4.00258494846342,
-                          -21.00357681484648, 26.8556413626615, 206.5513384066188,
-                          -355.60235612207947};
-    const double B1[7] = {-0.57554980753450, 0.69950955214436, 3.89256733895307,
-                          -17.21547164777212, 192.6722644652495, -161.8264616487648,
-                          -165.2076934555607};
-    const double B2[7] = {0.09768831158356, -0.25575749816100, -9.15585615297321,
-                          20.64207597439724, -38.80443005206285, 93.6267740770146,
-                          -29.66690558514725};
-    const double AD[5][3] = {{0.30435038064, 0.95346405973, -1.16100802773},
-                             {-0.13585877707, -1.83963831920, 4.52586067320},
-                             {1.44933285154, 2.01311801180, 0.97512223853},
-                             {0.35569769252, -7.37249576667, -12.2810377713},
-                             {-2.06533084541, 8.23741345333, 5.93975747420}};
-    const double BD[3][3] = {{0.21879385627, -0.58731641193, 3.48695755800},
-                             {-1.18964307357, 1.24891317047, -14.9159739347},
-                             {1.16268885692, -0.50852797392, 15.3720218600}};
-    const double CD[4][3] = {{-0.06467735252, -0.95208758351, -0.62609792333},
-                             {0.19758818347, 2.99242575222, 1.29246858189},
-                             {-0.80875619458, -2.38026356489, 1.65427830900},
-                             {0.69028490492, -0.27012609786, -3.43967436378}};
+// na, nb] at temperature T (precompute_pure).
+FEOS_HD RowConsts row_consts(const double* par, double temperature) {
+    const Universal u = universal();
+    const real m = par[0], sigma = par[1], eps_k = par[2], mu = par[3];
+    const real kappa_ab = par[4], eps_k_ab = par[5];
+    const real inv_t = 1.0 / real(temperature);
+    const real e = eps_k * inv_t;
+    const real s3 = sigma * sigma * sigma;
+    const real inv_m = 1.0 / m;
+    const real m1 = (m - 1.0) * inv_m;
+    const real m2 = (m - 2.0) * inv_m;
+    const real mc = fmin(m, real(2.0));
+    const real inv_mc = 1.0 / mc;
+    const real md1 = (mc - 1.0) * inv_mc;
+    const real md2 = md1 * (mc - 2.0) * inv_mc;
+    const real d = sigma * (1.0 - 0.12 * exp(-3.0 * e));
 
-    const S m = par[0], sigma = par[1], eps_k = par[2], mu = par[3];
-    const S kappa_ab = par[4], eps_k_ab = par[5];
-    const S inv_t = 1.0 / temperature;
-    const S e = eps_k * inv_t;
-    const S s3 = sigma * sigma * sigma;
-    const S inv_m = 1.0 / m;
-    const S m1 = (m - 1.0) * inv_m;
-    const S m2 = (m - 2.0) * inv_m;
-    const S mc = fmin(m, S(2.0));
-    const S inv_mc = 1.0 / mc;
-    const S md1 = (mc - 1.0) * inv_mc;
-    const S md2 = md1 * (mc - 2.0) * inv_mc;
-    const S d = sigma * (1.0 - 0.12 * exp(-3.0 * e));
-
-    RowConstsT<S> rc;
+    RowConsts rc;
     rc.m = m;
     rc.eta_m = kPi / 6.0 * m * (d * d * d);
     for (int i = 0; i < 7; ++i) {
-        rc.c_i1[i] = m1 * (m2 * A2[i] + A1[i]) + A0[i];
-        rc.c_i2[i] = m1 * (m2 * B2[i] + B1[i]) + B0[i];
+        rc.c_i1[i] = m1 * (m2 * u.a[2][i] + u.a[1][i]) + u.a[0][i];
+        rc.c_i2[i] = m1 * (m2 * u.b[2][i] + u.b[1][i]) + u.b[0][i];
     }
     rc.me = m * e;
     rc.m2es3 = m * rc.me * s3;
     for (int i = 0; i < 5; ++i) {
-        const S a = AD[i][0] + md1 * AD[i][1] + md2 * AD[i][2];
-        rc.c_j1[i] = i < 3 ? a + (BD[i][0] + md1 * BD[i][1] + md2 * BD[i][2]) * e : a;
+        const real a = u.ad[i][0] + md1 * u.ad[i][1] + md2 * u.ad[i][2];
+        rc.c_j1[i] =
+            i < 3 ? a + (u.bd[i][0] + md1 * u.bd[i][1] + md2 * u.bd[i][2]) * e : a;
     }
     for (int i = 0; i < 4; ++i)
-        rc.c_j2[i] = CD[i][0] + md1 * CD[i][1] + md2 * CD[i][2];
+        rc.c_j2[i] = u.cd[i][0] + md1 * u.cd[i][1] + md2 * u.cd[i][2];
     rc.inv_s3 = 1.0 / s3;
     // mu^2 / (m sigma^3 eps) MU2_FACTOR (eps/T) sigma^3, cancelled
     rc.mu2eff = mu * mu * inv_m * inv_t * kMu2Factor;
@@ -187,11 +187,6 @@ FEOS_HD RowConstsT<S> row_consts_of(const P* par, S temperature) {
     rc.na = par[6];
     rc.nb = par[7];
     return rc;
-}
-
-// The row stage in the scalar real, as the density stage below takes it.
-FEOS_HD RowConsts row_consts(const double* par, double temperature) {
-    return row_consts_of<real>(par, real(temperature));
 }
 
 // What the terms share at one density rho: eta = eta_m rho, its powers, and

@@ -1,31 +1,34 @@
-// The pure-component VLE solve of one row: the arithmetic of the pure_vle
-// kernel (pure_vle.cu), built for the CPU tests by pure_vle_host.cpp.
+// The pure-component VLE solve of one row, in two stages: the arithmetic of
+// the pure_vle kernels (pure_vle.cu), built for the CPU tests by
+// pure_vle_host.cpp.
 //
 // It computes feos_tpu_torch/solvers/vle.py::pure_vle_plain step for step,
-// with its constants, for one row: the spinodal scan on the 48 packing
-// fractions of _ETA_GRID (passed in, so that the grid is numpy's to the
-// bit), the two-lane liquid NPT solve (targets 1e-10 and p_inf) sharing one
-// counter capped at 60, the ideal-vapor estimate, the one-lane vapor NPT
-// solve, the damped 2x2 Newton in (ln rho_V, ln rho_L) with its stall
-// detector, capped at 80, and acceptance from the carried state.  Every
-// phi evaluation is phi_d3 of pcsaft_pure_d3.cuh on the row's constants,
-// computed once.  Where the batched torch loop evaluates every lane of an
-// active row and discards the done ones, a row here evaluates only its
-// lanes that are not done; the results are the same.
+// with its constants, for one row:
 //
-// NaN follows torch: clamps and minima keep a NaN (torch.clamp and
-// torch.minimum propagate it where fmin/fmax would drop it), and argmin
-// takes the first NaN as the smallest value.
+// * The scan (_spinodal_estimate): dp~/drho at the 48 packing fractions of
+//   _ETA_GRID (passed in, so that the grid is numpy's to the bit).  Each
+//   point is scan_point(); scan_combine() keeps the point torch.argmin
+//   picks, and is associative and commutative, so that the kernel reduces a
+//   row's points in any tree and gets the serial scan's point.
+// * The solve from the scan's result (solve_row): the two-lane liquid NPT
+//   solve (targets 1e-10 and p_inf) sharing one counter capped at 60, the
+//   ideal-vapor estimate, the one-lane vapor NPT solve, the damped 2x2
+//   Newton in (ln rho_V, ln rho_L) with its stall detector, capped at 80,
+//   and acceptance from the carried state.  These are one loop that makes
+//   one phi evaluation an iteration: the stage and the lane say which
+//   density it takes and what the result updates.  So the kernel holds one
+//   inlined phi_d3 for the whole solve, and the rows of a warp meet at it
+//   whatever stage each is in.  Where the batched torch loop evaluates
+//   every lane of an active row and discards the done ones, a row here
+//   evaluates only its lanes that are not done; the results are the same.
+//
+// Every phi evaluation is phi_d3 of pcsaft_pure_d3.cuh on the row's
+// constants, computed once.  NaN follows torch: clamps and minima keep a NaN
+// (torch.clamp and torch.minimum propagate it where fmin/fmax would drop
+// it), and argmin takes the first NaN as the smallest value.
 #pragma once
 
 #include "pcsaft_pure_d3.cuh"
-
-// a loop over lanes stays a loop: one inlined phi_d3 for all its lanes
-#ifdef __CUDACC__
-#define FEOS_NO_UNROLL _Pragma("unroll 1")
-#else
-#define FEOS_NO_UNROLL
-#endif
 
 namespace feos {
 
@@ -50,165 +53,242 @@ FEOS_HD double max_nan(double a, double b) {
 }
 
 // (p~, dp~/drho, mu~_tot, dmu~/drho) at rho: _eos_pure_multi on phi_d2's
-// (phi, phi', phi'') = (re, v1, 2 v2)
+// (phi, phi', phi'') = (re, v1, 2 v2).  mu~ and its slope cost a log and a
+// division, and the scan does not read them: without `with_mu` they are 0.
 struct Eos {
     double pt, dpt, mu, dmu;
 };
 
-FEOS_HD Eos eos_at(const RowConsts& rc, double rho) {
+FEOS_HD Eos eos_at(const RowConsts& rc, double rho, bool with_mu) {
     const D3 f = phi_d3(rc, rho);
     const double d2 = 2.0 * f.v2;
-    return {rho - f.re + rho * f.v1, 1.0 + rho * d2, f.v1 + log(rho), d2 + 1.0 / rho};
+    Eos e = {rho - f.re + rho * f.v1, 1.0 + rho * d2, 0.0, 0.0};
+    if (with_mu) {
+        e.mu = f.v1 + log(rho);
+        e.dmu = d2 + 1.0 / rho;
+    }
+    return e;
+}
+
+// -- the scan -----------------------------------------------------------------
+
+// A grid point of the scan: dp~/drho and p~ there, and the point's index
+// (rho there is eta_grid[j] / eta_m, recomputed where it is needed).
+struct ScanPoint {
+    double dpt, pt;
+    int j;
+};
+
+FEOS_HD double scan_rho(const RowConsts& rc, const double* eta_grid, int j) {
+    return eta_grid[j] / rc.eta_m;
+}
+
+FEOS_HD ScanPoint scan_point(const RowConsts& rc, const double* eta_grid, int j) {
+    const Eos e = eos_at(rc, scan_rho(rc, eta_grid, j), false);
+    return {e.dpt, e.pt, j};
+}
+
+// The point torch.argmin over dp~/drho keeps of two: a NaN before any
+// number, then the smaller value, then the lower index.  A total order on
+// distinct indices, so the combine is associative and commutative.
+FEOS_HD ScanPoint scan_combine(const ScanPoint& a, const ScanPoint& b) {
+    const bool a_nan = isnan(a.dpt), b_nan = isnan(b.dpt);
+    bool t;  // a comes first
+    if (a_nan != b_nan)
+        t = a_nan;
+    else if (!a_nan && a.dpt != b.dpt)
+        t = a.dpt < b.dpt;
+    else
+        t = a.j < b.j;
+    // field by field: a select of whole structs goes through local memory
+    return {t ? a.dpt : b.dpt, t ? a.pt : b.pt, t ? a.j : b.j};
+}
+
+// The point every point comes before: the combine's identity, where a
+// reduction starts.
+FEOS_HD ScanPoint scan_identity() { return {INFINITY, 0.0, kGridSize}; }
+
+// What the solve takes from the scan: p_inf = max(p~, 1e-12) at the
+// minimum (NaN kept), rho there, and whether the minimum of dp~/drho is
+// positive (no van der Waals loop).
+struct Spinodal {
+    double p_inf, rho_inf;
+    bool supercritical;
+};
+
+FEOS_HD Spinodal spinodal_of(const ScanPoint& s, double rho) {
+    return {s.pt < 1e-12 ? 1e-12 : s.pt, rho, s.dpt > 0.0};
+}
+
+// -- the solve ----------------------------------------------------------------
+
+// An NPT lane p~(rho) = target (_npt_multi_pure), or one phase of the
+// Newton: its log density, its target, whether it is done, and its last
+// evaluation (the NPT lanes keep p~ and dp~/drho for their acceptance).
+// Past the liquid stage lane b's target holds what the next stage needs,
+// in place of a register of its own: the vapor stage's fallback for
+// ln rho_V, then the Newton's best merit.
+struct Lane {
+    double lr, target;
+    bool done;
+    Eos e;
+};
+
+FEOS_HD Lane npt_lane(double target, double rho0) {
+    // a lane whose target or start is not finite never converges
+    return {log(rho0), target, !(isfinite(target) && isfinite(rho0)),
+            {INFINITY, 1.0, 0.0, 0.0}};
+}
+
+// One NPT step of lane l from its evaluation e at rho = exp(l.lr).
+FEOS_HD void npt_step(Lane& l, double rho, const Eos& e, double sign, double lr_max) {
+    const double r = e.pt - l.target;
+    const double dr = rho * e.dpt;  // d p~ / d ln rho
+    const bool pos = dr > 0.0;
+    const double newton = r / (pos ? dr : 1.0);
+    double step = pos ? clamp_nan(newton, -0.5, 0.5) : -sign * 0.2;
+    const bool converged = fabs(newton) < kStepTol && pos;
+    const bool bad = !isfinite(step);
+    if (bad) step = 0.0;
+    if (!(converged || bad)) l.lr = min_nan(l.lr - step, lr_max);
+    l.e = e;
+    l.done = converged || bad;
+}
+
+// The density of a finished NPT lane, and whether it is accepted.
+FEOS_HD bool npt_accepted(const Lane& l, double& rho) {
+    rho = exp(l.lr);
+    const double resid =
+        fabs(l.e.pt - l.target) / fabs(rho * (l.e.dpt > 0.0 ? l.e.dpt : 1.0));
+    return isfinite(rho) && l.e.dpt > 0.0 && resid < kResRtol;
+}
+
+// What the solve reads and never changes: the row constants and two logs.
+// The kernel keeps them in shared memory and reads them at each evaluation.
+struct SolveConsts {
+    RowConsts rc;
+    double lr_max;  // log(0.74 / eta_m): the NPT lanes' largest log density
+    double ln_inf;  // log(rho_inf): the Newton's bound between the phases
+};
+
+FEOS_HD SolveConsts solve_consts(const double* par, double temperature, const Spinodal& sp) {
+    SolveConsts c;
+    c.rc = row_consts(par, temperature);
+    c.lr_max = log(0.74 / c.rc.eta_m);
+    c.ln_inf = log(sp.rho_inf);
+    return c;
 }
 
 // The result of one row's solve, and its work: the NPT iterations (liquid
-// and vapor counters added), the Newton iterations and the phi evaluations.
+// and vapor counters added), the Newton iterations and the phi evaluations
+// (the scan's 48 included).
 struct VleRow {
     double rho_v, rho_l;
     bool ok;
     int npt, newton, evals;
 };
 
-// K NPT lanes p~(rho) = target of one row (_npt_multi_pure): lanes share
-// the row's counter and freeze one by one; each keeps its last evaluated
-// (p~, dp~/drho, mu~).  Returns the iterations; rho, ok and mu per lane.
-template <int K>
-FEOS_HD int npt_lanes(const RowConsts& rc, const double (&target)[K],
-                      const double (&rho0)[K], double sign, double lr_max,
-                      double (&rho)[K], bool (&ok)[K], double (&mu)[K], int& evals) {
-    double lr[K], keep_pt[K], keep_dpt[K];
-    bool done[K];
-    for (int l = 0; l < K; ++l) {
-        lr[l] = log(rho0[l]);
-        keep_pt[l] = INFINITY;
-        keep_dpt[l] = 1.0;
-        mu[l] = 0.0;
-        // a lane whose target or start is not finite never converges
-        done[l] = !(isfinite(target[l]) && isfinite(rho0[l]));
-    }
-    int it = 0;
-    while (it < kMaxNptIter) {
-        bool active = false;
-        for (int l = 0; l < K; ++l) active = active || !done[l];
-        if (!active) break;
-FEOS_NO_UNROLL
-        for (int l = 0; l < K; ++l) {
-            if (done[l]) continue;
-            const double r_l = exp(lr[l]);
-            const Eos e = eos_at(rc, r_l);
-            ++evals;
-            const double r = e.pt - target[l];
-            const double dr = r_l * e.dpt;  // d p~ / d ln rho
-            const bool pos = dr > 0.0;
-            const double newton = r / (pos ? dr : 1.0);
-            double step = pos ? clamp_nan(newton, -0.5, 0.5) : -sign * 0.2;
-            const bool converged = fabs(newton) < kStepTol && pos;
-            const bool bad = !isfinite(step);
-            if (bad) step = 0.0;
-            if (!(converged || bad)) lr[l] = min_nan(lr[l] - step, lr_max);
-            keep_pt[l] = e.pt;
-            keep_dpt[l] = e.dpt;
-            mu[l] = e.mu;
-            done[l] = converged || bad;
-        }
-        ++it;
-    }
-    for (int l = 0; l < K; ++l) {
-        rho[l] = exp(lr[l]);
-        const double resid =
-            fabs(keep_pt[l] - target[l]) / fabs(rho[l] * (keep_dpt[l] > 0.0 ? keep_dpt[l] : 1.0));
-        ok[l] = isfinite(rho[l]) && keep_dpt[l] > 0.0 && resid < kResRtol;
-    }
-    return it;
-}
+enum Stage { kLiquid, kVapor, kNewton, kDone };
 
-// The whole solve of the row par at temperature T; eta_grid holds the 48
-// packing fractions of the spinodal scan.
-FEOS_HD VleRow pure_vle_row(const double* par, double temperature, const double* eta_grid) {
-    const RowConsts rc = row_consts(par, temperature);
-    const double eta_m = rc.eta_m;
+// The solve of a row from its scan's result.  `fresh` returns the row's
+// SolveConsts for one evaluation: the kernel reads them from shared memory.
+template <class Fresh>
+FEOS_HD VleRow solve_row(Fresh fresh, const Spinodal& sp) {
     VleRow out;
-    out.evals = 0;
+    out.evals = kGridSize;
+    out.npt = 0;
 
-    // _spinodal_estimate: the grid point of least dp~/drho
-    double p_min = 0.0, d_min = INFINITY, rho_min = 0.0;
-    bool nan_min = false;
-FEOS_NO_UNROLL
-    for (int j = 0; j < kGridSize; ++j) {
-        const double rho = eta_grid[j] / eta_m;
-        const Eos e = eos_at(rc, rho);
-        ++out.evals;
-        const bool take = !nan_min && (isnan(e.dpt) || e.dpt < d_min || j == 0);
-        if (take) {
-            nan_min = isnan(e.dpt);
-            d_min = e.dpt;
-            p_min = e.pt;
-            rho_min = rho;
+    // _vle_init: lane a is the liquid at vanishing pressure, lane b the
+    // liquid at p_inf; then lane a is the vapor NPT lane and b holds the
+    // liquid's start; in the Newton a is the vapor, b the liquid
+    const double rho_liq = 0.5 / fresh().rc.eta_m;
+    Lane a = npt_lane(1e-10, rho_liq), b = npt_lane(sp.p_inf, rho_liq);
+    int stage = kLiquid, it = 0;
+    bool on_b = false;  // the lane of the next evaluation
+    bool ok_l = false;
+    int stale = 0;
+    for (;;) {
+        // an NPT stage ends when its lanes are done or at the cap: the
+        // next stage starts (the liquid's and the vapor's may take no
+        // evaluation)
+        while (stage < kNewton && (it >= kMaxNptIter || (a.done && b.done))) {
+            if (stage == kLiquid) {
+                double rho0, rho1;
+                const bool ok0 = npt_accepted(a, rho0), ok1 = npt_accepted(b, rho1);
+                const bool ok_tiny = ok0 && fresh().rc.eta_m * rho0 < 0.7;
+                ok_l = ok_tiny || ok1;
+                // the ideal-vapor saturation estimate ln p~0 = mu~(rho_L),
+                // refined on the vapor branch
+                const double mu0 = a.e.mu;
+                const double p0 = ok_tiny ? exp(clamp_nan(mu0, -78.0, 78.0)) : sp.p_inf;
+                out.npt = it;
+                b.lr = log(ok_tiny ? rho0 : rho1);
+                b.target = ok_tiny ? mu0 : log(p0 < 1e-300 ? 1e-300 : p0);
+                b.done = true;
+                a = npt_lane(p0, p0 < 1e-30 ? 1e-30 : p0);
+                stage = kVapor;
+            } else {
+                double rv;
+                const bool ok_v = npt_accepted(a, rv);
+                a.lr = ok_v && a.target > 1e-33 && rv > 0.0 ? log(rv) : b.target;
+                b.target = INFINITY;  // the Newton's best merit
+                out.npt += it;
+                stage = kNewton;
+            }
+            it = 0;
         }
-    }
-    const bool supercritical = d_min > 0.0;
-    const double p_inf = p_min < 1e-12 ? 1e-12 : p_min;
-    const double ln_inf = log(rho_min);
+        if (stage == kDone) break;
+        if (stage < kNewton && !on_b) on_b = a.done;  // an iteration's first lane
 
-    // _vle_init, lane 0: liquid at vanishing pressure; lane 1: at p_inf
-    const double rho_liq = 0.5 / eta_m;
-    const double lr_max = log(0.74 / eta_m);
-    double rho_init[2], mu_init[2];
-    bool ok_init[2];
-    const int n_liq = npt_lanes<2>(rc, {1e-10, p_inf}, {rho_liq, rho_liq}, 1.0, lr_max,
-                                   rho_init, ok_init, mu_init, out.evals);
-    const bool ok_tiny = ok_init[0] && eta_m * rho_init[0] < 0.7;
-    const double rho_l0 = ok_tiny ? rho_init[0] : rho_init[1];
-    const bool ok_l = ok_tiny || ok_init[1];
+        const double lr = on_b ? b.lr : a.lr;
+        const double rho = exp(lr);
+        const Eos e = eos_at(fresh().rc, rho, true);
+        ++out.evals;
 
-    // the ideal-vapor saturation estimate ln p~0 = mu~(rho_L), refined on
-    // the vapor branch
-    const double mu0 = mu_init[0];
-    const double p_mu = exp(clamp_nan(mu0, -78.0, 78.0));
-    const double p0 = ok_tiny ? p_mu : p_inf;
-    double rho_vap[1], mu_vap[1];
-    bool ok_vap[1];
-    const int n_vap = npt_lanes<1>(rc, {p0}, {p0 < 1e-30 ? 1e-30 : p0}, -1.0, lr_max,
-                                   rho_vap, ok_vap, mu_vap, out.evals);
-    const double rv = rho_vap[0];
-    double ln_rho_v0;
-    if (ok_vap[0] && p0 > 1e-33 && rv > 0.0)
-        ln_rho_v0 = log(rv);
-    else
-        ln_rho_v0 = ok_tiny ? mu0 : log(p0 < 1e-300 ? 1e-300 : p0);
-    out.npt = n_liq + n_vap;
+        if (stage < kNewton) {
+            const double sign = stage == kLiquid ? 1.0 : -1.0;
+            const double lr_max = fresh().lr_max;
+            if (on_b)
+                npt_step(b, rho, e, sign, lr_max);
+            else
+                npt_step(a, rho, e, sign, lr_max);
+            if (!on_b && !b.done) {
+                on_b = true;  // lane b in the same iteration
+            } else {
+                on_b = false;
+                ++it;
+            }
+            continue;
+        }
+        if (!on_b) {  // the Newton's vapor evaluation: the liquid's next
+            a.e = e;
+            on_b = true;
+            continue;
+        }
 
-    // _vle_newton: damped 2x2 Newton in (ln rho_V, ln rho_L)
-    double lv = ln_rho_v0, ll = log(rho_l0);
-    double r_p = INFINITY, r_mu = INFINITY, dpt_v = INFINITY, dpt_l = INFINITY;
-    double best = INFINITY;
-    int stale = 0, it = 0;
-    bool done = false;
-    while (!done && it < kMaxVleIter) {
-        const double rho[2] = {exp(lv), exp(ll)};
-        Eos e[2];
-FEOS_NO_UNROLL
-        for (int l = 0; l < 2; ++l) e[l] = eos_at(rc, rho[l]);
-        out.evals += 2;
-        const double r1 = e[0].pt - e[1].pt;
-        const double r2 = e[0].mu - e[1].mu;
-        const double j00 = rho[0] * e[0].dpt;
-        const double j01 = -rho[1] * e[1].dpt;
-        const double j10 = rho[0] * e[0].dmu;
-        const double j11 = -rho[1] * e[1].dmu;
+        // _vle_newton: one damped 2x2 Newton step in (ln rho_V, ln rho_L)
+        on_b = false;
+        const Eos& ev = a.e;
+        const double rho_v = exp(a.lr);
+        const double r1 = ev.pt - e.pt;
+        const double r2 = ev.mu - e.mu;
+        const double j00 = rho_v * ev.dpt;
+        const double j01 = -rho * e.dpt;
+        const double j10 = rho_v * ev.dmu;
+        const double j11 = -rho * e.dmu;
         double det = j00 * j11 - j01 * j10;
         det = fabs(det) > 1e-30 ? det : 1e-30;
         const double dv = (j11 * r1 - j01 * r2) / det;
         const double dl = (-j10 * r1 + j00 * r2) / det;
         // exit on step size or on residuals at the acceptance level
-        const double p_allow = kNewtonResRtol * fabs(j00) + kNewtonResAbs * fabs(rho[1] * e[1].dpt);
+        const double p_allow = kNewtonResRtol * fabs(j00) + kNewtonResAbs * fabs(rho * e.dpt);
         const bool res_ok = fabs(r1) < p_allow && fabs(r2) < kNewtonMuTol;
         // noise-floor stall detection
         const double merit = max_nan(fabs(r1) / p_allow, fabs(r2) / kNewtonMuTol);
-        const bool improved = merit < 0.9 * best;
+        const bool improved = merit < 0.9 * b.target;
         const bool armed = merit < 1e3;
         stale = improved ? 0 : (armed ? stale + 1 : stale);
-        best = min_nan(best, merit);
+        b.target = min_nan(b.target, merit);
         const bool stalled = stale >= 3;
         const bool converged = (fabs(dv) + fabs(dl)) < kStepTol || res_ok || stalled;
         double sv = clamp_nan(dv, -0.2, 0.2), sl = clamp_nan(dl, -0.2, 0.2);
@@ -217,26 +297,24 @@ FEOS_NO_UNROLL
         // the final step is taken on the iteration a row converges, unless
         // it stalled
         if (!bad && !stalled) {
-            lv = min_nan(lv - sv, ln_inf);
-            ll = max_nan(ll - sl, ln_inf);
+            const double ln_inf = fresh().ln_inf;
+            a.lr = min_nan(a.lr - sv, ln_inf);
+            b.lr = max_nan(b.lr - sl, ln_inf);
         }
-        r_p = r1;
-        r_mu = r2;
-        dpt_v = e[0].dpt;
-        dpt_l = e[1].dpt;
-        done = converged || bad;
         ++it;
+        if (converged || bad || it >= kMaxVleIter) {
+            // residual acceptance from the carried state (pure_vle_plain)
+            out.newton = it;
+            out.rho_v = exp(a.lr);
+            out.rho_l = exp(b.lr);
+            const double p_noise = 4e-12 * fabs(out.rho_l * e.dpt);
+            const bool res_p_ok = fabs(r1) < kResRtol * fabs(out.rho_v * ev.dpt) + p_noise;
+            out.ok = ok_l && !sp.supercritical && isfinite(out.rho_v) && isfinite(out.rho_l) &&
+                     res_p_ok && fabs(r2) < 1e-7 && out.rho_l > out.rho_v * (1.0 + 1e-6) &&
+                     ev.dpt > 0.0 && e.dpt > 0.0;
+            stage = kDone;
+        }
     }
-    out.newton = it;
-
-    // residual acceptance from the carried state (pure_vle_plain)
-    out.rho_v = exp(lv);
-    out.rho_l = exp(ll);
-    const double p_noise = 4e-12 * fabs(out.rho_l * dpt_l);
-    const bool res_p_ok = fabs(r_p) < kResRtol * fabs(out.rho_v * dpt_v) + p_noise;
-    out.ok = ok_l && !supercritical && isfinite(out.rho_v) && isfinite(out.rho_l) && res_p_ok &&
-             fabs(r_mu) < 1e-7 && out.rho_l > out.rho_v * (1.0 + 1e-6) && dpt_v > 0.0 &&
-             dpt_l > 0.0;
     return out;
 }
 

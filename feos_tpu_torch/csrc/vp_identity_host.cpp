@@ -14,5 +14,5 @@ extern "C" void feos_vp_identity_host(const double* params, const double* temper
                                       double* ptilde, double* partials, int64_t B) {
     for (int64_t row = 0; row < B; ++row)
         feos::vp_identity_row(params + 8 * row, temperature[row], rho_v[row], rho_l[row],
-                              ptilde + row, partials + feos::kSlots * row);
+                              ptilde + row, partials + feos::kPartials * row);
 }

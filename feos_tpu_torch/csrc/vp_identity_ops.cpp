@@ -1,10 +1,10 @@
 // Counts the f64 operations and transcendentals of vp_identity.cuh for one
-// row, by building it on the counting scalar of phi_d2_ops.cpp (every +, -,
-// *, / and fmin; every exp, log and sqrt) carried in the 9-slot dual.  An
-// operation with an operand of exactly 0 is not counted: those are the
-// tangents a quantity does not depend on (c_i1 on anything but m, say),
-// work the function does not need.  The bound's operation counts (OPS_VP_*
-// in chip_smoke.py) are fixed numbers; tests/test_torch_vp_identity_kernel.py
+// row, by building its adjoint on the counting scalar of phi_d2_ops.cpp
+// (every +, -, *, / and fmin; every exp, log and sqrt).  An operation with
+// an operand of exactly 0 is not counted: those are the adjoints a quantity
+// does not receive (md2's on a row with m > 2, where mc = 2), work the
+// function does not need.  The bound's operation counts (OPS_VP_* in
+// chip_smoke.py) are fixed numbers; tests/test_torch_vp_identity_kernel.py
 // holds this tally of the header to them.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libvp_identity_ops.so vp_identity_ops.cpp
@@ -51,7 +51,7 @@ inline Real sqrt(Real a) { ++tally.sqrt; return ::sqrt(a.v); }
 extern "C" void feos_vp_identity_ops(const double* par, double temperature, double rho_v,
                                      double rho_l, int64_t* counts) {
     count::tally = {};
-    count::Real ptilde, partials[feos::kSlots];
+    count::Real ptilde, partials[feos::kPartials];
     feos::vp_identity_row<count::Real>(par, temperature, rho_v, rho_l, &ptilde, partials);
     const int64_t all[4] = {count::tally.ops, count::tally.exp, count::tally.log,
                             count::tally.sqrt};

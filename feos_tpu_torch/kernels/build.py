@@ -101,9 +101,12 @@ def library() -> ctypes.CDLL:
         lib.feos_phi_d2.restype = i32
         lib.feos_phi_d2_empty.argtypes = [i64, i64, i32, ptr]
         lib.feos_phi_d2_empty.restype = i32
-        lib.feos_pure_vle.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
+        lib.feos_pure_vle.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.feos_pure_vle.restype = i32
         lib.feos_vp_identity.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
         lib.feos_vp_identity.restype = i32
+        for name in ("feos_pure_vle_occupancy", "feos_vp_identity_occupancy"):
+            getattr(lib, name).argtypes = [i32, ptr]
+            getattr(lib, name).restype = i32
         _lib = lib
     return _lib

@@ -1,15 +1,16 @@
-"""pure_vle: the whole pure-component VLE solve of a row batch in one launch.
+"""pure_vle: the whole pure-component VLE solve of a row batch in one call.
 
-The wrapper of the CUDA kernel in ``feos_tpu_torch/csrc/pure_vle.cu``, one
-thread a row, which computes ``solvers/vle.py::pure_vle_plain`` step for
-step (``csrc/pure_vle.cuh``).  ``solvers.vle.pure_vle`` calls it, so every
-pure VLE caller (``vapor_pressure``, ``equilibrium_liquid_density``,
-``boiling_temperature``, the diagrams' pure seeds, ``fit_pure``) gets the
-kernel on the card.
+The wrapper of the CUDA kernels in ``feos_tpu_torch/csrc/pure_vle.cu``,
+which compute ``solvers/vle.py::pure_vle_plain`` step for step
+(``csrc/pure_vle.cuh``): a spinodal scan with 16 threads a row, then the
+solve with one thread a row, on the caller's stream.  ``solvers.vle.pure_vle``
+calls it, so every pure VLE caller (``vapor_pressure``,
+``equilibrium_liquid_density``, ``boiling_temperature``, the diagrams' pure
+seeds, ``fit_pure``) gets the kernels on the card.
 
 On a CPU tensor it takes ``pure_vle_plain``.  On a CUDA tensor it launches
-the kernel or raises; it never falls back.  ``pure_vle.launches`` counts
-kernel launches.
+the kernels or raises; it never falls back.  ``pure_vle.launches`` counts
+calls that launched them (one a solve).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from .build import library
 
 _GRIDS = {}  # the spinodal grid on each device it was asked for
+BOTH = 3  # feos_pure_vle's `stages`: the scan (1) and the solve (2)
 
 
 def _check(params, temperature):
@@ -47,23 +49,24 @@ def _eta_grid(device):
 
 
 def launch(params, temperature):
-    """One launch of the kernel: ``(rho_v, rho_l, ok, iters)`` with ``iters
-    (B, 3)`` int32 = [NPT iterations, Newton iterations, phi evaluations] of
-    each row.  ``params (B, 8)`` and ``temperature (B,)`` are contiguous
-    float64 on one CUDA device."""
+    """The kernels on one row batch: ``(rho_v, rho_l, ok, iters)`` with
+    ``iters (B, 3)`` int32 = [NPT iterations, Newton iterations, phi
+    evaluations] of each row.  ``params (B, 8)`` and ``temperature (B,)`` are
+    contiguous float64 on one CUDA device."""
     _check(params, temperature)
     if params.device.type != "cuda":
         raise ValueError(f"the pure_vle kernel runs on cuda, not {params.device}")
     lib = library()
     B, dev = params.shape[0], params.device
+    spinodal = torch.empty((B, 3), dtype=torch.float64, device=dev)  # the scan's result
     rho_v = torch.empty(B, dtype=torch.float64, device=dev)
     rho_l = torch.empty(B, dtype=torch.float64, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     iters = torch.empty((B, 3), dtype=torch.int32, device=dev)
     err = lib.feos_pure_vle(
         params.data_ptr(), temperature.data_ptr(), _eta_grid(dev).data_ptr(),
-        rho_v.data_ptr(), rho_l.data_ptr(), ok.data_ptr(), iters.data_ptr(), B, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        spinodal.data_ptr(), rho_v.data_ptr(), rho_l.data_ptr(), ok.data_ptr(),
+        iters.data_ptr(), B, BOTH, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"pure_vle kernel launch failed: cudaError {err}")

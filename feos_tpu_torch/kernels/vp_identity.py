@@ -9,7 +9,7 @@ stationary in both densities, so its partials in the 8 parameters and T
 at fixed densities are the implicit-function derivative of the solve.
 :func:`vp_identity` returns p~ and those partials, ``(B, 9)``: on a CUDA
 tensor from one launch of the kernel in ``feos_tpu_torch/csrc/
-vp_identity.cu`` (forward duals, ``csrc/vp_identity.cuh``), which it
+vp_identity.cu`` (a hand-written adjoint, ``csrc/vp_identity.cuh``), which it
 counts in ``vp_identity.launches``, or raises; on a CPU tensor from
 :func:`vp_identity_plain`, autograd of the identity in torch ops.
 :class:`VaporPressureIdentity` uses them as the forward and backward of

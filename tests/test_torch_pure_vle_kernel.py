@@ -1,13 +1,16 @@
-"""The pure_vle kernel's arithmetic, built for the host, against the plain
+"""The pure_vle kernels' arithmetic, built for the host, against the plain
 solver and the JAX package.
 
-``g++`` builds ``feos_tpu_torch/csrc/pure_vle.cuh`` (the per-row solve each
-thread of the kernel runs) into a ctypes shim, ``pure_vle_host.cpp``.  Its
-rows are held to ``pure_vle_plain`` (the batched torch loops) on a seeded
-``make_batch``, near-critical, supercritical, NaN, dipolar and associating
-rows: equal masks, densities within 1e-10.  JAX's f64 ``pure_vle`` on the
-270 rows of ``tests/test_torch_vle.py`` is read from
-``tests/golden/torch_vle_jax.npz`` and held at that file's bars.
+``g++`` builds ``feos_tpu_torch/csrc/pure_vle.cuh`` (the scan point, the
+combine and the solve from the scan's result) into a ctypes shim,
+``pure_vle_host.cpp``, which runs them in the kernels' order: 16 lanes of 3
+grid points a row reduced as the scan kernel's shuffle tree reduces them,
+then the solve.  Its rows are held to ``pure_vle_plain`` (the batched torch
+loops) on a seeded ``make_batch``, near-critical, supercritical, NaN,
+dipolar and associating rows: equal masks, densities within 1e-10.  JAX's
+f64 ``pure_vle`` on the 270 rows of ``tests/test_torch_vle.py`` is read
+from ``tests/golden/torch_vle_jax.npz`` and held at that file's bars.  The
+combine is held to the serial scan, bit for bit, in random reduction trees.
 """
 
 import ctypes
@@ -44,6 +47,18 @@ class Host:
         self.lib.feos_pure_vle_host(ptr(params), ptr(temperature), ptr(grid), ptr(rho_v),
                                     ptr(rho_l), ptr(ok), ptr(iters), ctypes.c_int64(B))
         return rho_v, rho_l, ok.astype(bool), iters
+
+
+    def combine(self, dpt, pt, rho, j, merges):
+        """``scan_combine`` of the points ``(dpt, pt)`` with grid indices
+        ``j`` in the tree ``merges`` ((n - 1, 2) slot pairs), ``rho`` by grid
+        index: ``(p_inf, rho_inf, supercritical)``."""
+        dpt, pt, rho = (np.ascontiguousarray(x, dtype=np.float64) for x in (dpt, pt, rho))
+        j, merges = (np.ascontiguousarray(x, dtype=np.int32) for x in (j, merges))
+        out = np.empty(3)
+        self.lib.feos_scan_combine_host(ptr(dpt), ptr(pt), ptr(rho), ptr(j), ptr(merges),
+                                        ctypes.c_int(len(dpt)), ptr(out))
+        return out[0], out[1], bool(out[2])
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +188,79 @@ def test_matches_jax(host):
     both = got[2] & ref["ok"]
     for j, key in enumerate(("rho_v", "rho_l")):
         np.testing.assert_allclose(got[j][both], ref[key][both], rtol=RTOL, atol=0)
+
+
+def _serial_scan(dpt, pt, rho):
+    """The scan as the serial loop runs it: the first NaN of dp~/drho, else
+    the first point of the least value; ``(p_inf, rho_inf, supercritical)``
+    with p_inf = max(p~, 1e-12), NaN kept."""
+    best = 0
+    for j in range(1, len(dpt)):
+        if np.isnan(dpt[best]):
+            break
+        if np.isnan(dpt[j]) or dpt[j] < dpt[best]:
+            best = j
+    p = pt[best]
+    return (1e-12 if p < 1e-12 else p), rho[best], bool(dpt[best] > 0.0)
+
+
+def _argmin_scan(dpt, pt, rho):
+    """The same as ``_spinodal_estimate`` computes it, with torch.argmin."""
+    d, p, r = (torch.as_tensor(x)[None] for x in (dpt, pt, rho))
+    i = torch.argmin(d, dim=1, keepdim=True)
+    return (float(torch.clamp(p.gather(1, i), min=1e-12)), float(r.gather(1, i)),
+            bool(d.gather(1, i) > 0.0))
+
+
+def _scan_row(rng, kind):
+    """48 (dp~/drho, p~, rho) of a scan row of the given kind."""
+    n = len(_ETA_GRID)
+    dpt = rng.normal(size=n) * 10.0 ** rng.integers(-3, 4)
+    if kind == "ties":
+        dpt = rng.choice(rng.normal(size=4), size=n)
+        dpt[rng.integers(n, size=3)] = [0.0, -0.0, 0.0]
+    elif kind == "nan":
+        dpt[rng.choice(n, size=rng.integers(1, 4), replace=False)] = np.nan
+    elif kind == "inf":
+        dpt[rng.choice(n, size=6, replace=False)] = rng.choice([np.inf, -np.inf], size=6)
+    elif kind == "positive":
+        dpt = np.abs(dpt) + 1e-3
+        dpt[rng.choice(n, size=4, replace=False)] = dpt.min()  # a tie at the minimum
+    pt = rng.normal(size=n) * 1e-11
+    pt[rng.integers(n)] = np.nan
+    return dpt, pt, _ETA_GRID / rng.uniform(0.5, 2.0)
+
+
+def _random_tree(rng, n):
+    """n - 1 merges of random pairs of the slots still open, each pair in
+    random order."""
+    open_, merges = list(range(n)), []
+    while len(open_) > 1:
+        a, b = rng.choice(len(open_), size=2, replace=False)
+        merges.append((open_[a], open_[b]))
+        open_.pop(b)
+    return np.asarray(merges)
+
+
+@pytest.mark.parametrize("kind", ("numbers", "ties", "nan", "inf", "positive"))
+def test_scan_combine_matches_serial_scan(host, kind):
+    """scan_combine in random permutations of a row's 48 points and random
+    reduction trees gives the serial scan's (p_inf, rho_inf, supercritical)
+    bit for bit, as torch.argmin gives it: the first NaN, else the least
+    value, ties to the lowest index."""
+    rng = np.random.default_rng(["numbers", "ties", "nan", "inf", "positive"].index(kind))
+    n = len(_ETA_GRID)
+    for _ in range(40):
+        dpt, pt, rho = _scan_row(rng, kind)
+        want = _serial_scan(dpt, pt, rho)
+        np.testing.assert_array_equal(_argmin_scan(dpt, pt, rho), want)
+        for _ in range(5):
+            perm = rng.permutation(n)
+            got = host.combine(dpt[perm], pt[perm], rho, perm, _random_tree(rng, n))
+            assert np.array(got[:2]).tobytes() == np.array(want[:2]).tobytes()
+            assert got[2] == want[2]
+    if kind == "positive":
+        assert want[2]
 
 
 def test_cpu_wrapper_takes_the_plain_path():

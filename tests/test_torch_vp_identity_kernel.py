@@ -3,9 +3,9 @@ plain graph's autograd and the JAX package; the ``autograd.Function`` that
 uses it as ``vapor_pressure``'s backward on the card.
 
 ``g++`` builds ``feos_tpu_torch/csrc/vp_identity.cuh`` (p~ of the
-vapor-pressure identity and its partials in the 8 parameters and T, in
-9-slot forward duals, as each thread of the kernel computes them) into a
-ctypes shim, ``vp_identity_host.cpp``, and once more on a counting scalar
+vapor-pressure identity and its partials in the 8 parameters and T, by the
+hand-written adjoint each thread of the kernel runs) into a ctypes shim,
+``vp_identity_host.cpp``, and once more on a counting scalar
 (``vp_identity_ops.cpp``) for the bound's operation counts.  JAX's f64
 gradient of the identity on ``tests/test_torch_vapor_pressure.py``'s batch
 is read from ``tests/golden/torch_vapor_pressure_jax.npz``.
@@ -140,7 +140,7 @@ def test_special_rows_match_plain(special, name):
     assert np.all(np.isfinite(got[1][i]))
     assert np.all(_scaled_errors(got[1], want[1])[i] < PARTIALS_BOUND)
     if name == "kappa_ab>0, eps_ab=0":
-        # the association term is zero in value, not in its eps_ab tangent
+        # the association term is zero in value, not in its eps_ab partial
         assert got[1][i, 5] != 0.0
     if name.startswith("mu=0"):
         assert np.all(got[1][i, 3:8] == 0.0)
