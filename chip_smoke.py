@@ -65,8 +65,14 @@ this card: phase 10's ``fit_pure`` with a mesh, held to phase 10 within
 held to each other; and ``data_parallel(vapor_pressure)`` on phase 5's
 rows padded with NaN rows, held to phase 5.  Phase 18 runs the six
 examples of ``examples_torch/`` on the card (the fits at a few steps, whose
-losses must fall; the diagrams, whose dew curves must close).  Every phase
-raises on failure; the seconds of each phase are printed at the end.
+losses must fall; the diagrams, whose dew curves must close).  Phase 19
+checks the port's tracer on the steps of the benchmark's pure_vp.b100k and
+pure_fit.b100k cells: under ``torch.profiler`` its spans change no device
+event, aten op or sync and are no device event, the pure_vle kernel's phi
+evaluations a row it keeps equal ``iters[:, 2]`` read directly, and each
+step and each profiled window is timed with the tracer off and on in
+turns.  Every phase raises on failure; the seconds of each phase are
+printed at the end.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -100,7 +106,7 @@ from feos_tpu_torch import (
     equilibrium_liquid_density, fit_binary, fit_gc, fit_pure, flash, gc_binary_pxy,
     gc_binary_txy, gc_helmholtz_energy_density, gc_properties, liquid_density, make_batch,
     mix_derivatives, mix_helmholtz_energy_density, mix_properties, precompute_pure,
-    pure_derivatives, pure_properties, pure_vle, vapor_pressure,
+    pure_derivatives, pure_properties, pure_vle, tracing, vapor_pressure,
 )
 from feos_tpu_torch.kernels import build
 from feos_tpu_torch.kernels import pure_vle as pure_vle_kernel
@@ -273,6 +279,9 @@ DP_PAD = 1_024                      # phase 5's rows padded to a multiple of thi
 EXAMPLES = ("fit_parameters", "fit_binary_kij", "fit_gc_kab", "fit_flash_kij", "pxy_diagram",
             "txy_diagram")
 EXAMPLE_STEPS = {"fit_parameters": 3, "fit_binary_kij": 2, "fit_gc_kab": 2, "fit_flash_kij": 2}
+# phase 19: the tracer; for each benchmark step, the steps of a profiled
+# window and the groups of four timed steps (off, on, on, off)
+TRACE_STEPS = {"pure_vp": (5, 60), "pure_fit": (2, 15)}
 # f64 SASS opcodes; MUFU.RCP64H and MUFU.RSQ64H seed divisions and sqrt
 F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
 
@@ -786,32 +795,29 @@ def main_path(dev, params, temperature, power):
 KERNELS = ("phi_d2", "pure_vle", "vp_identity")
 
 
-def reset_counts():
-    """Every kernel's launch count to 0."""
-    phi_d2.launches = 0
-    phi_d2.launches_by_k = {}
-    pure_vle_kernel.pure_vle.launches = 0
-    vp_identity.launches = 0
-
-
-def counts():
-    """Each kernel's launches since :func:`reset_counts`, phi_d2's also by k."""
-    return {"phi_d2": phi_d2.launches,
-            "phi_d2_by_k": {str(k): n for k, n in sorted(phi_d2.launches_by_k.items())},
-            "pure_vle": pure_vle_kernel.pure_vle.launches,
-            "vp_identity": vp_identity.launches}
+def counts(rec):
+    """Each kernel's launches in a recorder of the port's tracer, phi_d2's
+    also by k."""
+    c = rec.counters
+    by_k = sorted((int(name.rsplit(".k", 1)[1]), n) for name, n in c.items()
+                  if name.startswith("launch.phi_d2.k"))
+    return {"phi_d2": c.get("launch.phi_d2", 0),
+            "phi_d2_by_k": {str(k): n for k, n in by_k},
+            "pure_vle": c.get("launch.pure_vle", 0),
+            "vp_identity": c.get("launch.vp_identity", 0)}
 
 
 def on_card(fn):
-    """``(fn(), seconds, launches, by kernel)``: every kernel's count is set
-    to 0 just before ``fn`` runs and read just after; ``launches`` is their
-    sum and ``by kernel`` the :func:`counts`."""
+    """``(fn(), seconds, launches, by kernel)``: ``fn`` runs inside a
+    recorder of the port's tracer; ``launches`` is the sum of its kernels'
+    launches and ``by kernel`` the :func:`counts`."""
     torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    seconds, by = time.perf_counter() - t0, counts()
+    with tracing.record() as rec:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    by = counts(rec)
     return out, seconds, sum(by[k] for k in KERNELS), by
 
 
@@ -2334,6 +2340,189 @@ def examples(dev):
     return paths
 
 
+def profiled_events(step, steps, tracer_on):
+    """The events of the benchmark's two traced windows of ``steps`` steps
+    (h100bench/harness.py: the device alone, then host and device), with
+    the port's tracer on, as a recording profiler turns it on, or held off:
+    ``[(device event names, host events (name, scope, user annotation),
+    seconds)]`` of each window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = tracing._profiling
+    if not tracer_on:
+        tracing._profiling = lambda: False
+    try:
+        out = []
+        for activities in ([ProfilerActivity.CUDA],
+                           [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    step()
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            dev, host = [], []
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == torch.autograd.DeviceType.CUDA:
+                    dev.append(e.name())
+                else:
+                    host.append((e.name(), e.scope(), e.is_user_annotation()))
+            out.append((dev, host, seconds))
+        return out
+    finally:
+        tracing._profiling = saved
+
+
+def step_ms(step):
+    """One step's time in ms, from a CUDA event before it to one after it,
+    the stream empty at its start."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def site_costs_us(reps=100_000):
+    """The host's cost of one tracer site, in us: a counter off, on (inside
+    a record()), and a span entered and left on."""
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    def one_span():
+        with tracing.span("solver.probe"):
+            pass
+
+    off = per_call(lambda: tracing.count("sync.probe"))
+    with tracing.record():
+        on = per_call(lambda: tracing.count("sync.probe"))
+        span_on = per_call(one_span)
+    return {"count_off": off, "count_on": on, "span_on": span_on}
+
+
+def tracer_phase(params, temperature, p_sat, rho_l):
+    """Phase 19: the port's tracer (feos_tpu_torch/tracing.py) on the card,
+    on the steps of the benchmark's cells pure_vp.b100k (vapor pressures and
+    the backward of sum ln p) and pure_fit.b100k (fit_pure's loss at 1.01
+    times the parameters against phase 5's pressures and phase 6's liquid
+    densities, and its backward).  The profiler records FUNCTION-scope
+    spans: each window's device events are the same with the tracer on as
+    held off, no feos. name is a device event, and the host window's aten
+    ops and syncs are the same too; the windows are timed in turns (off,
+    on, on, off).  The profiled recorder's counters and the kernel's own phi
+    evaluations a row against iters[:, 2] read directly; then each step's
+    cost with the tracer on (a record()) and off, in groups of four steps
+    (off, on, on, off), and the cost of one site."""
+    from collections import Counter
+
+    from feos_tpu_torch.regression import masked_relative_sse
+
+    check(hasattr(torch._C._profiler, "_RecordFunctionFast"),
+          f"torch {torch.__version__} has no _RecordFunctionFast")
+    q = params.detach().clone().requires_grad_()
+    theta = (params * 1.01).detach().requires_grad_()
+    p_sat, rho_l = p_sat.detach(), rho_l.detach()
+    pressure = torch.where(torch.isfinite(p_sat), p_sat, 1e5).contiguous()
+
+    def vp_step():
+        q.grad = None
+        nans, vp = vapor_pressure(q, temperature)
+        log_sum(nans, vp).backward()
+
+    def fit_step():
+        theta.grad = None
+        nans_p, vp = vapor_pressure(theta, temperature)
+        nans_r, rl = liquid_density(theta, temperature, pressure)
+        loss = (masked_relative_sse(torch.where(nans_p, 1.0, vp), p_sat, ~nans_p)
+                + masked_relative_sse(torch.where(nans_r, 1.0, rl), rho_l, ~nans_r))
+        loss.backward()
+
+    _, _, _, iters = pure_vle_kernel.launch(params, temperature)
+    direct = int(iters[:, 2].sum()) / len(iters)
+    with tracing.record() as rec:
+        vapor_pressure(params, temperature)
+    check(rec.phi_evals_per_row() == direct,
+          f"tracer phi evaluations {rec.phi_evals_per_row()} against iters[:, 2] {direct}")
+    costs = site_costs_us()
+    print(f"phase 19 one site: a counter off {costs['count_off']:.3f} us, on "
+          f"{costs['count_on']:.3f} us; a span on {costs['span_on']:.3f} us")
+    record = {"phi_evals_per_row": direct, "site_us": costs}
+    for name, step in (("pure_vp", vp_step), ("pure_fit", fit_step)):
+        steps, groups = TRACE_STEPS[name]
+        step()
+        tracing.profiled = tracing.Recorder()
+        held_off, on, on_2, held_off_2 = (profiled_events(step, steps, tracer_on)
+                                          for tracer_on in (False, True, True, False))
+        rec = tracing.profiled
+        runs = (held_off, on, on_2, held_off_2)
+        for w, label in enumerate(("device-only", "host-and-device")):
+            check(not any(n.startswith(tracing.PREFIX) for run in runs for n in run[w][0]),
+                  f"{name} {label} window: a feos. span among the device events")
+            check(not any(n.startswith(tracing.PREFIX) for n, _, _ in held_off[w][1]
+                          + held_off_2[w][1]),
+                  f"{name} {label} window: feos. spans with the tracer held off")
+            for kind, pick in (("device events", None), ("aten ops", "aten::"),
+                               ("syncs", "Synchronize")):
+                tally = [Counter(run[w][0]) if pick is None else
+                         Counter(n for n, _, _ in run[w][1]
+                                 if (n.startswith(pick) if pick == "aten::" else pick in n))
+                         for run in runs]
+                for i, t in enumerate(tally[1:], 1):
+                    if t != tally[0]:
+                        print(f"phase 19 {name} {label} window, {kind}: run {i} (off, on, on, "
+                              f"off) against run 0: more {dict(t - tally[0])}, fewer "
+                              f"{dict(tally[0] - t)}")
+                # a window with the tracer on holds what one held off holds
+                check(all(t in (tally[0], tally[3]) for t in tally[1:3]),
+                      f"{name} {label} window: the {kind} differ with the tracer on")
+        spans = [(n, scope, user) for n, scope, user in on[1][1] if n.startswith(tracing.PREFIX)]
+        check(spans and all(scope == 0 and not user for _, scope, user in spans),
+              f"{name}: the host window's feos. spans are not all FUNCTION-scope events")
+        window_ms = [[1e3 * run[w][2] / steps for run in (held_off, on, on_2, held_off_2)]
+                     for w in (0, 1)]
+        c = rec.counters
+        n_steps = c["calls.entry.vapor_pressure"]
+        check(n_steps == 4 * steps, f"{name}: {n_steps} vapor_pressure calls in {4 * steps} steps")
+        syncs = {k: n / n_steps for k, n in c.items() if k.startswith("sync.")}
+        npt = (c["sync.npt_density"] / c["calls.solver.npt_density"]
+               if "calls.solver.npt_density" in c else None)
+        sites = sum(n for k, n in c.items() if not k.startswith("rows.")) / n_steps
+        evals = rec.phi_evals_per_row()
+        if name == "pure_vp":
+            check(evals == direct, f"profiled phi evaluations {evals} against {direct}")
+        turns = []
+        for _ in range(groups):
+            off_1 = step_ms(step)
+            with tracing.record():
+                on_1, on_2 = step_ms(step), step_ms(step)
+            turns.append((off_1, on_1, on_2, step_ms(step)))
+        off = statistics.median(t for g in turns for t in (g[0], g[3]))
+        on_ms = statistics.median(t for g in turns for t in (g[1], g[2]))
+        cost_us = statistics.median((g[1] + g[2] - g[0] - g[3]) / 2 for g in turns) * 1e3
+        print(f"phase 19 {name}: device events a window {len(on[0][0])} on and held off, "
+              f"{len(spans)} feos. spans ({len(set(spans))} names) among "
+              f"{len(on[1][1])} host events; windows (off, on, on, off), ms a step: "
+              f"device-only {[round(x, 4) for x in window_ms[0]]}, host-and-device "
+              f"{[round(x, 4) for x in window_ms[1]]}; syncs in the program a step "
+              f"{sum(syncs.values()):g} {syncs}, npt_density syncs a call {npt}, phi "
+              f"evaluations a row {evals}, tracer sites a step {sites:g}; step (median of "
+              f"{groups} groups off, on, on, off) off {off:.4f}, on {on_ms:.4f} ms, on - off "
+              f"(median of the groups) {cost_us:.1f} us")
+        record[name] = {"syncs_in_program_per_step": syncs, "npt_syncs_per_call": npt,
+                        "phi_evals_per_row": evals, "device_events": len(on[0][0]),
+                        "spans": len(spans), "window_ms": window_ms, "sites_per_step": sites,
+                        "ms_off": off, "ms_on": on_ms, "on_minus_off_us": cost_us}
+    print(json.dumps({"tracer": record}))
+    return record
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2451,6 +2640,10 @@ def main():
     # phase 18: the six examples
     paths.update(examples(dev))
     lap("18")
+
+    # phase 19: the port's tracer
+    tracer_phase(params, temperature, p_sat, rho_l)
+    lap("19")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the start of main; "
           f"seconds by phase {seconds}")
 

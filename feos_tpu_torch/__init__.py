@@ -54,7 +54,11 @@ or more associating components raise ``ValueError``.
   evaluations (its plain PyTorch version on CPU tensors); two more carry the
   main path on the card: ``kernels.pure_vle`` (the whole pure VLE solve, a
   thread a row) and ``kernels.vp_identity`` (the vapor-pressure identity
-  and its partials, the backward of :func:`vapor_pressure`).
+  and its partials, the backward of :func:`vapor_pressure`);
+* :mod:`feos_tpu_torch.tracing` -- spans from the entry points down to the
+  kernels and counters of launches and host syncs, kept in memory inside
+  ``with tracing.record() as rec:`` and while a ``torch.profiler`` window
+  records.
 
 Every function takes its device from its tensors or from a ``device``
 argument, which defaults to ``"cuda"``: the entry points run on the card
@@ -62,7 +66,7 @@ unless the caller asks for the CPU.  The package imports neither jax nor
 ``feos_tpu``.
 """
 
-from . import units, utils
+from . import tracing, units, utils
 from .data import make_batch
 from .diagrams import (
     BinaryPxy, BinaryTxy, binary_pxy, binary_txy, gc_binary_pxy, gc_binary_txy,
@@ -169,6 +173,7 @@ __all__ = [
     "pure_loss",
     "pure_properties",
     "pure_vle",
+    "tracing",
     "units",
     "utils",
     "vapor_pressure",

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "feos_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
@@ -91,22 +93,28 @@ def build() -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if need be."""
+    """The loaded kernel library, built first if need be; the call that
+    builds or loads it is the tracer's span ``feos.setup.library``."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()["path"]))
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        i32 = ctypes.c_int
-        lib.feos_phi_d2.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-        lib.feos_phi_d2.restype = i32
-        lib.feos_phi_d2_empty.argtypes = [i64, i64, i32, ptr]
-        lib.feos_phi_d2_empty.restype = i32
-        lib.feos_pure_vle.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
-        lib.feos_pure_vle.restype = i32
-        lib.feos_vp_identity.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
-        lib.feos_vp_identity.restype = i32
-        for name in ("feos_pure_vle_occupancy", "feos_vp_identity_occupancy"):
-            getattr(lib, name).argtypes = [i32, ptr]
-            getattr(lib, name).restype = i32
-        _lib = lib
+        with tracing.span("setup.library"):
+            _lib = _load()
     return _lib
+
+
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()["path"]))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    i32 = ctypes.c_int
+    lib.feos_phi_d2.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+    lib.feos_phi_d2.restype = i32
+    lib.feos_phi_d2_empty.argtypes = [i64, i64, i32, ptr]
+    lib.feos_phi_d2_empty.restype = i32
+    lib.feos_pure_vle.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.feos_pure_vle.restype = i32
+    lib.feos_vp_identity.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
+    lib.feos_vp_identity.restype = i32
+    for name in ("feos_pure_vle_occupancy", "feos_vp_identity_occupancy"):
+        getattr(lib, name).argtypes = [i32, ptr]
+        getattr(lib, name).restype = i32
+    return lib

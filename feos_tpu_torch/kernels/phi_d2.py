@@ -6,14 +6,16 @@ Every phi evaluation inside the VLE solve goes through it.
 
 On a CPU tensor it takes :func:`phi_d2_plain`, the same function in torch
 ops.  On a CUDA tensor it launches the kernel variant the library picks for
-``k`` or raises; it never falls back.  ``phi_d2.launches`` counts kernel
-launches and ``phi_d2.launches_by_k`` counts them by ``k``.
+``k`` or raises; it never falls back.  Each call is the tracer's span
+``feos.kernel.phi_d2``; each launch counts ``launch.phi_d2`` and
+``launch.phi_d2.k<k>`` (:mod:`feos_tpu_torch.tracing`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..models.pcsaft_pure import PureParams, phi_pure_pre, precompute_pure
 from ..ops.derivatives import value_and_2derivs
 from .build import library
@@ -66,6 +68,7 @@ def _check(params, temperature, rho):
             raise ValueError(f"{name} must be contiguous")
 
 
+@tracing.traced("kernel")
 def phi_d2(params, temperature, rho):
     """``(phi, phi', phi'')`` at ``rho (B, k)`` for ``params (B, 8)`` and
     ``temperature (B,)``, all contiguous float64 on one device."""
@@ -84,10 +87,5 @@ def phi_d2(params, temperature, rho):
     )
     if err != 0:
         raise RuntimeError(f"phi_d2 kernel launch failed: cudaError {err}")
-    phi_d2.launches += 1
-    phi_d2.launches_by_k[k] = phi_d2.launches_by_k.get(k, 0) + 1
+    tracing.launched("phi_d2", k=k)
     return out[0], out[1], out[2]
-
-
-phi_d2.launches = 0
-phi_d2.launches_by_k = {}

@@ -9,14 +9,16 @@ calls it, so every pure VLE caller (``vapor_pressure``,
 seeds, ``fit_pure``) gets the kernels on the card.
 
 On a CPU tensor it takes ``pure_vle_plain``.  On a CUDA tensor it launches
-the kernels or raises; it never falls back.  ``pure_vle.launches`` counts
-calls that launched them (one a solve).
+the kernels or raises; it never falls back.  Each call is the tracer's
+span ``feos.kernel.pure_vle``; each launch counts ``launch.pure_vle`` and
+leaves its per-row counts with the tracer (:mod:`feos_tpu_torch.tracing`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from .build import library
 
 _GRIDS = {}  # the spinodal grid on each device it was asked for
@@ -70,17 +72,19 @@ def launch(params, temperature):
     )
     if err != 0:
         raise RuntimeError(f"pure_vle kernel launch failed: cudaError {err}")
-    pure_vle.launches += 1
+    tracing.launched("pure_vle", iters=iters)
     return rho_v, rho_l, ok, iters
 
 
+@tracing.traced("kernel")
 def pure_vle(params, temperature, stats=None):
     """``(rho_v, rho_l, ok)`` of ``params (B, 8)`` at ``temperature (B,)``,
     contiguous float64 on one device.
 
     If ``stats`` is a dict: on the card it receives the largest NPT and
     Newton iteration counts of any row as ``npt`` and ``newton`` (one sync)
-    and ``pure_vle_launches``; on the CPU, ``pure_vle_plain``'s keys.
+    and ``pure_vle_launches`` (also the tracer's ``pure_vle.*`` counters);
+    on the CPU, ``pure_vle_plain``'s keys.
     """
     _check(params, temperature)
     if params.device.type == "cpu":
@@ -89,9 +93,7 @@ def pure_vle(params, temperature, stats=None):
         return pure_vle_plain(params, temperature, stats=stats)
     rho_v, rho_l, ok, iters = launch(params, temperature)
     if stats is not None:
+        tracing.count("sync.pure_vle_stats")
         npt, newton, _ = iters.max(0).values.tolist() if len(iters) else (0, 0, 0)
-        stats.update(npt=npt, newton=newton, pure_vle_launches=1)
+        tracing.report(stats, "pure_vle", npt=npt, newton=newton, pure_vle_launches=1)
     return rho_v, rho_l, ok
-
-
-pure_vle.launches = 0

@@ -10,8 +10,9 @@ at fixed densities are the implicit-function derivative of the solve.
 :func:`vp_identity` returns p~ and those partials, ``(B, 9)``: on a CUDA
 tensor from one launch of the kernel in ``feos_tpu_torch/csrc/
 vp_identity.cu`` (a hand-written adjoint, ``csrc/vp_identity.cuh``), which it
-counts in ``vp_identity.launches``, or raises; on a CPU tensor from
-:func:`vp_identity_plain`, autograd of the identity in torch ops.
+counts as the tracer's ``launch.vp_identity``, or raises; on a CPU tensor
+from :func:`vp_identity_plain`, autograd of the identity in torch ops.  Each
+call is the tracer's span ``feos.kernel.vp_identity``.
 :class:`VaporPressureIdentity` uses them as the forward and backward of
 ``vapor_pressure``'s re-attachment on the card.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from .build import library
 
 SLOTS = 9  # the partials: [m, sigma, epsilon_k, mu, kappa_ab, epsilon_k_ab, na, nb, T]
@@ -68,6 +70,7 @@ def _check(params, temperature, rho_v, rho_l):
             raise ValueError(f"{name} must be contiguous")
 
 
+@tracing.traced("kernel")
 def vp_identity(params, temperature, rho_v, rho_l):
     """``(p~ (B,), partials (B, 9))`` for ``params (B, 8)`` at ``temperature``,
     ``rho_v`` and ``rho_l`` ``(B,)``, all contiguous float64 on one device;
@@ -89,11 +92,8 @@ def vp_identity(params, temperature, rho_v, rho_l):
     )
     if err != 0:
         raise RuntimeError(f"vp_identity kernel launch failed: cudaError {err}")
-    vp_identity.launches += 1
+    tracing.launched("vp_identity")
     return ptilde, partials
-
-
-vp_identity.launches = 0
 
 
 class VaporPressureIdentity(torch.autograd.Function):

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import AD, BD, CD
 
 PI = np.pi
@@ -51,6 +52,7 @@ def precompute_dipole(m, sigma, epsilon_k, mu2_scaled, temperature) -> DipolePre
     columns and ``(B,)`` temperatures."""
     n = m.shape[-1]
     dev = m.device
+    tracing.count("sync.precompute_dipole", 3)  # three copies from host memory to the card
     cAD, cBD, cCD = (torch.as_tensor(c, dtype=F64, device=dev) for c in (AD, BD, CD))
     t = temperature[:, None]
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..constants import A0, A1, A2, B0, B1, B2
 from ..ops.association import cross_assoc_sym_iterate, solve_cross_assoc_sym
 from ..ops.derivatives import pressure_set
@@ -158,6 +159,7 @@ def kab_matrix(segment_identifier, pairs, values):
         i, j = seg_idx[s1], seg_idx[s2]
         record[i, j] = record[j, i] = r
     padded = torch.cat([values, values.new_zeros(1)])  # index -1: no record
+    tracing.count("sync.kab_matrix")  # the record's copy from host memory
     return padded[torch.as_tensor(record, device=values.device)]
 
 
@@ -168,6 +170,7 @@ def assemble(topology: GcTopology, parameter, kab, phi=None) -> GcParams:
     correction ``phi`` (ones for ``None``); the parameter half of the JAX
     package's ``assemble`` (reference feos_torch/gc_pcsaft.py:13-114)."""
     dev = parameter.device
+    tracing.count("sync.assemble", 5)  # five copies of the topology from host memory
     rows = torch.as_tensor(topology.rows, device=dev)
     counts = _f64(topology.counts, dev)[rows]  # (B, n, S)
     m_seg, sigma, epsilon_k, mu, kappa_ab, epsilon_k_ab, na, nb = parameter.unbind(-1)
@@ -179,6 +182,7 @@ def assemble(topology: GcTopology, parameter, kab, phi=None) -> GcParams:
     mu2 = (counts * mu**2).sum(2) / m_mix * MU2_FACTOR
 
     is_assoc = counts * torch.sign(kappa_ab * epsilon_k_ab)
+    tracing.count("sync.assemble")
     if bool((is_assoc.sum(2) > 1).any()):
         raise ValueError("Only up to one associating segment per component is allowed!")
 
@@ -295,6 +299,7 @@ def precompute_gc(g: GcParams, temperature) -> GcPre:
 
     # the reachable regimes, from the masks themselves (one host sync)
     masks = torch.stack([dipolar, self_m, cross_m, induced_m, n_assoc > 2])
+    tracing.count("sync.precompute_gc")
     *reached, too_many = masks.any(-1).tolist()
     if too_many:
         raise ValueError(TOO_MANY_ASSOCIATING)
@@ -321,6 +326,7 @@ def phi_gc_pre(pre: GcPre, density, assoc_q_form: bool = False):
     col = _columns(density)
     rho = density
     dev = rho.device
+    tracing.count("sync.phi_gc_pre", 6)  # six copies from host memory to the card
     cA0, cA1, cA2, cB0, cB1, cB2 = (
         torch.as_tensor(c, dtype=F64, device=dev) for c in (A0, A1, A2, B0, B1, B2)
     )

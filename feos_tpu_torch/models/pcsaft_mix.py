@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..constants import A0, A1, A2, B0, B1, B2
 from ..ops.association import (
     cross_assoc_iterate, induced_assoc_iterate, solve_cross_assoc, solve_induced_assoc,
@@ -125,6 +126,7 @@ def _pairwise(f, n):
     return torch.stack([torch.stack([f(i, j) for j in range(n)], -1) for i in range(n)], -2)
 
 
+@tracing.traced("solver", rows_arg=3)
 def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
     """Build :class:`MixPre` from ``(B, n)`` parameter columns and ``(B,)``
     ``kij``, ``epsilon_k_aibj`` and temperatures.  Plain torch ops, so
@@ -178,6 +180,7 @@ def precompute_mix(p: MixParams, kij, epsilon_k_aibj, temperature) -> MixPre:
 
     # the reachable regimes, from the masks themselves (one host sync)
     masks = torch.stack([dipolar, self_m, cross_m, induced_m, n_assoc > 2])
+    tracing.count("sync.precompute_mix")
     *reached, too_many = masks.any(-1).tolist()
     if too_many:
         raise ValueError(TOO_MANY_ASSOCIATING)
@@ -251,6 +254,7 @@ def phi_mix_pre(pre: MixPre, density, assoc_q_form: bool = False):
     rho = density
     m = col(pre.m)
     dev = rho.device
+    tracing.count("sync.phi_mix_pre", 6)  # six copies from host memory to the card
     cA0, cA1, cA2, cB0, cB1, cB2 = (
         torch.as_tensor(c, dtype=F64, device=dev) for c in (A0, A1, A2, B0, B1, B2)
     )
@@ -582,6 +586,7 @@ def _identity(phi_fn, r_inc, r_bulk):
     return -(a_inc + p_b * v_bulk + g_bulk - 1.0) / (1.0 / rho_inc_t - v_bulk)
 
 
+@tracing.traced("entry")
 def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure,
                  full_output=False, state0=None, state_output=False, stats=None):
     """Batched bubble-point pressure in Pa with gradients in the parameters,
@@ -608,6 +613,7 @@ def bubble_point(parameters, kij, temperature, liquid_molefracs, pressure,
                                True, full_output, state0, state_output, stats)
 
 
+@tracing.traced("entry")
 def dew_point(parameters, kij, temperature, vapor_molefracs, pressure,
               full_output=False, state0=None, state_output=False, stats=None):
     """Batched dew-point pressure in Pa (reference

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..constants import A0, A1, A2, B0, B1, B2, AD, BD, CD
 from ..kernels.vp_identity import attach as attach_identity
 from ..ops.derivatives import value_and_2derivs
@@ -96,12 +97,10 @@ def precompute_pure(p: PureParams, temperature: torch.Tensor) -> PurePre:
     m, sigma, epsilon_k = p.m, p.sigma, p.epsilon_k
     dev = m.device
 
-    def const(c):
-        return torch.as_tensor(c, dtype=F64, device=dev)
-
-    cA0, cA1, cA2 = const(A0), const(A1), const(A2)
-    cB0, cB1, cB2 = const(B0), const(B1), const(B2)
-    cAD, cBD, cCD = const(AD), const(BD), const(CD)
+    tables = (A0, A1, A2, B0, B1, B2, AD, BD, CD)
+    tracing.count("sync.precompute_pure", len(tables))  # each copy to the card waits
+    cA0, cA1, cA2, cB0, cB1, cB2, cAD, cBD, cCD = (
+        torch.as_tensor(c, dtype=F64, device=dev) for c in tables)
 
     # temperature-dependent segment diameter
     d = sigma * (1.0 - 0.12 * torch.exp(-3.0 * epsilon_k / temperature))
@@ -246,6 +245,7 @@ def mu_res_pure(p: PureParams, temperature, density):
     return d1
 
 
+@tracing.traced("entry")
 def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
     """Batched vapor pressure in Pa with parameter gradients.
 
@@ -278,6 +278,7 @@ def vapor_pressure(parameters: torch.Tensor, temperature: torch.Tensor):
     return ~ok, torch.where(ok, pressure, torch.nan)
 
 
+@tracing.traced("entry")
 def liquid_density(parameters: torch.Tensor, temperature, pressure):
     """Batched liquid density in kmol/m^3 at ``(T, p [Pa])`` with gradients.
 
@@ -301,6 +302,7 @@ def liquid_density(parameters: torch.Tensor, temperature, pressure):
     return ~ok, torch.where(ok, rho / KMOL_M3_TO_REDUCED, torch.nan)
 
 
+@tracing.traced("entry")
 def equilibrium_liquid_density(parameters: torch.Tensor, temperature):
     """Batched saturated liquid density in kmol/m^3 with gradients.
 

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .models.gc_pcsaft import GcTopology, assemble, gc_bubble_point, kab_matrix
 from .models.pcsaft_mix import bubble_point
 from .models.pcsaft_pure import liquid_density, vapor_pressure
@@ -106,6 +107,7 @@ def run_adam(theta, lr, steps, loss_fn, aux=None, mesh=None):
         else:
             theta.grad = all_reduce_sum(theta.grad, mesh)
             losses.append(all_reduce_sum(loss, mesh))
+        tracing.count("sync.run_adam")
         not_finite = 0 if bool(torch.isfinite(theta.grad).all()) else not_finite + 1
         if not_finite == 0 or not_finite > MAX_CONSECUTIVE_ERRORS:
             opt.step()

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from .. import tracing
 from .vle import _MAX_NPT_ITER, _STEP_TOL, _states_eos, _states_hess, _val_and_jac
 
 PI = math.pi
@@ -134,6 +135,7 @@ def flash_tp(phi_q, phi_exact, z, p_red, md3, lnk0, beta0, active, stats=None):
     False on inactive rows.
     """
     dev = z.device
+    tracing.count("sync.flash_tp")  # the signs' copy from host memory to the card
     branch_sign = torch.tensor([1.0, -1.0], dtype=F64, device=dev)
     counts = {"npt": 0, "ss": 0, "npt_warm": 0, "polish": 0}
 
@@ -163,6 +165,7 @@ def flash_tp(phi_q, phi_exact, z, p_red, md3, lnk0, beta0, active, stats=None):
             step = torch.where(torch.isfinite(step), step, 0.0)
             lr = torch.minimum(lr - step, lr_cap)
             counts[key] += 1
+            tracing.count("sync.flash_npt")
             if not bool(((step.abs() >= _STEP_TOL) & rows[:, None]).any()):
                 break
         return lr
@@ -178,7 +181,10 @@ def flash_tp(phi_q, phi_exact, z, p_red, md3, lnk0, beta0, active, stats=None):
     done = ~active
     d_prev = torch.zeros_like(lnk0)
     it = 0
-    while it < _MAX_SS_ITER and bool((~done).any()):
+    while it < _MAX_SS_ITER:
+        tracing.count("sync.flash_ss")
+        if not bool((~done).any()):
+            break
         b, x, y = _comps_of(z, lnk, beta)
         lnr_new = npt_steps(lnr, x, y, _N_NPT_WARM, ~done, "npt_warm")
         R = torch.stack([x, y], 1) * torch.exp(lnr_new)[..., None]
@@ -231,8 +237,8 @@ def flash_tp(phi_q, phi_exact, z, p_red, md3, lnk0, beta0, active, stats=None):
         & (b > 1e-10) & (b < 1.0 - 1e-10)
         & torch.isfinite(x).all(-1) & torch.isfinite(y).all(-1)
     )
-    if stats is not None:
-        stats.update(counts)
+    if stats is not None or tracing.on():
+        tracing.report(stats, "flash_tp", **counts)
     return b, x, y, lnr, ok
 
 
@@ -283,6 +289,7 @@ def reattach_flash(resid_fn, beta, x, y, lnr, ok):
     beta = torch.where(ok, beta, 0.5)
     x = torch.where(okc, x, 1.0 / n)
     y = torch.where(okc, y, 1.0 / n)
+    tracing.count("sync.reattach_flash")  # the parking state's copy from host memory
     lnr = torch.where(okc, lnr, torch.tensor(_PARK_LNR, dtype=F64, device=x.device))
     v = torch.cat([torch.log(x) + lnr[:, :1], torch.log(y) + lnr[:, 1:], beta[:, None]], 1)
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
+
 # Secant slope prior: d ln p / d(1/T) ~ -(d ln p/d ln T) * T with
 # d ln p/d ln T ~ 10 near the normal boiling point (Trouton's rule); only
 # the first step uses it, after which measured slopes take over.
@@ -55,7 +57,10 @@ def saturation_temperature_loop(solve, t0, lnp_target, u0=None, stats=None):
     done = torch.zeros(i_t0.shape, dtype=torch.bool, device=i_t0.device)
     u = u0
     n_outer = 0
-    while n_outer < _MAX_OUTER and not bool(done.all()):
+    while n_outer < _MAX_OUTER:
+        tracing.count("sync.saturation_temperature_loop")
+        if bool(done.all()):
+            break
         if u is None:
             lnp, ok = solve(1.0 / i_t)
         else:
@@ -86,8 +91,8 @@ def saturation_temperature_loop(solve, t0, lnp_target, u0=None, stats=None):
         i_t = torch.where(done_new, i_t, i_t_next)
         done = done_new
         n_outer += 1
-    if stats is not None:
-        stats["outer"] = n_outer
+    if stats is not None or tracing.on():
+        tracing.report(stats, "saturation_temperature_loop", outer=n_outer)
     if u0 is None:
         return 1.0 / i_t, done
     return 1.0 / i_t, u, done

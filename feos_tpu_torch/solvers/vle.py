@@ -11,7 +11,7 @@ iterations, tolerances and residual acceptance, on ``(B, ...)`` tensors.
   batch and carries a per-row iteration count; a row is active while it is
   not done and under its iteration cap, and only active rows take the
   update.  The loop stops when no row is active (one host sync per
-  iteration).
+  iteration, which the tracer counts as ``sync.<loop>``).
 * On the card ``pure_vle`` is one launch of the ``pure_vle`` kernel, a
   thread a row; ``pure_vle_plain`` is its torch-ops twin, and runs on the
   CPU.  Every other pure phi evaluation goes through the ``phi_d2`` kernel
@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import pure_vle as _pure_vle_kernel
 from ..kernels.phi_d2 import phi_d2
 from ..models.pcsaft_pure import PureParams, phi_pure, precompute_pure
@@ -81,7 +82,7 @@ def _eos_pure_multi(rows: _Rows, rho):
     return ptilde, dptilde, mu, dmu
 
 
-def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign):
+def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign, sync_site):
     """Solve k pure NPT problems p~(rho) = p_target per row in one loop.
 
     ``p_targets`` and ``rho0`` are ``(B, k)``; ``branch_sign`` (k,) is +1
@@ -89,6 +90,7 @@ def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign):
     region (dp~/drho <= 0) the iterate walks toward its branch.  The k lanes
     of a row share the row's loop but freeze one by one; the last evaluated
     (p~, dp~, mu~) is carried, so acceptance needs no re-evaluation.
+    ``sync_site`` names the tracer's counter of the loop's stop tests.
 
     Returns ``(rho, ok, mu, iterations)``, the first three ``(B, k)``.
     """
@@ -109,6 +111,7 @@ def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign):
     n_iter = 0
     while True:
         active = (~done).any(1) & (it < _MAX_NPT_ITER)
+        tracing.count(sync_site)
         if not bool(active.any()):
             break
         rho = torch.exp(lr)
@@ -141,6 +144,7 @@ def _npt_multi_pure(rows: _Rows, p_targets, rho0, branch_sign):
     return rho, ok, mu, n_iter
 
 
+@tracing.traced("solver")
 @torch.no_grad()
 def npt_density(params, temperature, p_target, liquid=True, stats=None):
     """Single-branch pure NPT solve p~(rho) = p_target, all in f64.
@@ -159,10 +163,12 @@ def npt_density(params, temperature, p_target, liquid=True, stats=None):
     eta_m = precompute_pure(PureParams.from_tensor(params), temperature).eta_m
     rows = _Rows(params, temperature, eta_m)
     rho0 = 0.5 / eta_m if liquid else torch.clamp(p_target, min=1e-30)
+    tracing.count("sync.npt_density")  # the sign's copy from host memory to the card
     sign = torch.tensor([1.0 if liquid else -1.0], dtype=F64, device=eta_m.device)
-    rho, ok, _, n_iter = _npt_multi_pure(rows, p_target[:, None], rho0[:, None], sign)
-    if stats is not None:
-        stats.update(npt=n_iter, phi_d2_calls=n_iter)
+    rho, ok, _, n_iter = _npt_multi_pure(rows, p_target[:, None], rho0[:, None], sign,
+                                         "sync.npt_density")
+    if stats is not None or tracing.on():
+        tracing.report(stats, "npt_density", npt=n_iter, phi_d2_calls=n_iter)
     rho = rho[:, 0]
     return rho, ok[:, 0] & (eta_m * rho < 0.7)
 
@@ -174,6 +180,7 @@ def _spinodal_estimate(rows: _Rows):
     supercritical)``: the pressure and density at the grid minimum of
     dp~/drho, and whether that minimum is positive (no van der Waals loop).
     """
+    tracing.count("sync.vle_init")  # the grid's copy from host memory to the card
     grid = torch.as_tensor(_ETA_GRID, dtype=F64, device=rows.eta_m.device)
     rhos = grid[None, :] / rows.eta_m[:, None]
     ptildes, dptildes, _, _ = _eos_pure_multi(rows, rhos)
@@ -196,6 +203,7 @@ def _vle_init(rows: _Rows):
     eta_m = rows.eta_m
     dev = eta_m.device
     p_inf, rho_inf, supercritical = _spinodal_estimate(rows)
+    tracing.count("sync.vle_init", 2)  # the two lanes' signs, copied from host memory
 
     # lane 0: liquid at vanishing pressure; lane 1: liquid at p_inf
     rho_liq = 0.5 / eta_m
@@ -204,6 +212,7 @@ def _vle_init(rows: _Rows):
         torch.stack([torch.full_like(p_inf, 1e-10), p_inf], 1),
         torch.stack([rho_liq, rho_liq], 1),
         torch.tensor([1.0, 1.0], dtype=F64, device=dev),
+        "sync.vle_init",
     )
     ok_tiny = ok_init[:, 0] & (eta_m * rho_init[:, 0] < 0.7)
     rho_l0 = torch.where(ok_tiny, rho_init[:, 0], rho_init[:, 1])
@@ -219,6 +228,7 @@ def _vle_init(rows: _Rows):
         p0[:, None],
         torch.clamp(p0, min=1e-30)[:, None],
         torch.tensor([-1.0], dtype=F64, device=dev),
+        "sync.vle_init",
     )
     # the vapor estimate lives in log space: where the NPT refinement is
     # unusable, ln rho_V = mu~_tot(rho_L) is the ideal-vapor identity itself
@@ -255,6 +265,7 @@ def _vle_newton(rows: _Rows, lvl0, ln_inf):
     n_iter = 0
     while True:
         active = ~done & (it < _MAX_VLE_ITER)
+        tracing.count("sync.vle_newton")
         if not bool(active.any()):
             break
         rho = torch.exp(lvl)  # (B, 2) = [rho_V, rho_L]
@@ -306,6 +317,7 @@ def _vle_newton(rows: _Rows, lvl0, ln_inf):
     return lvl, keep, n_iter
 
 
+@tracing.traced("solver")
 @torch.no_grad()
 def pure_vle(params, temperature, stats=None):
     """Pure-component vapor-liquid equilibrium, all in f64.
@@ -341,8 +353,9 @@ def pure_vle_plain(params, temperature, stats=None):
 
     lvl0, ln_inf, ok_l, supercritical, n_npt = _vle_init(rows)
     lvl, keep, n_newton = _vle_newton(rows, lvl0, ln_inf)
-    if stats is not None:
-        stats.update(npt=n_npt, newton=n_newton, phi_d2_calls=1 + n_npt + n_newton)
+    if stats is not None or tracing.on():
+        tracing.report(stats, "pure_vle_plain", npt=n_npt, newton=n_newton,
+                       phi_d2_calls=1 + n_npt + n_newton)
     rho = torch.exp(lvl)
     rho_v, rho_l = rho[:, 0], rho[:, 1]
 
@@ -450,6 +463,7 @@ def pure_critical(params, stats=None):
     dev = params.device
     t0 = p.epsilon_k * (0.89 + 0.38 * p.m)
     eta_m0 = precompute_pure(p, t0).eta_m
+    tracing.count("sync.pure_critical")  # the grid's copy from host memory to the card
     rhos = torch.as_tensor(_ETA_GRID, dtype=F64, device=dev)[None, :] / eta_m0[:, None]
     _, dptildes, _, _ = _eos_pure_multi(_Rows(params, t0.contiguous(), eta_m0), rhos)
     rho0 = rhos.gather(1, torch.argmin(dptildes, dim=1, keepdim=True))[:, 0]
@@ -463,6 +477,7 @@ def pure_critical(params, stats=None):
     n_iter = 0
     while True:
         active = ~done & (it < _MAX_CRIT_ITER)
+        tracing.count("sync.pure_critical")
         if not bool(active.any()):
             break
         r, J = _val_and_jac(lambda v: _crit_residual(p, v), u)
@@ -490,8 +505,8 @@ def pure_critical(params, stats=None):
         done = torch.where(active, freeze, done)
         it = it + active
         n_iter += 1
-    if stats is not None:
-        stats.update(newton=n_iter, phi_d2_calls=1)
+    if stats is not None or tracing.on():
+        tracing.report(stats, "pure_critical", newton=n_iter, phi_d2_calls=1)
 
     e = torch.exp(u)
     rho_c, t_c = e[:, 0], e[:, 1]
@@ -586,6 +601,7 @@ def _mix_limits(phi_fn, z, p0, md3, incipient_is_vapor):
     z_md3 = (z * md3).sum(-1)
     eta_factor = PI / 6.0 * z_md3
 
+    tracing.count("sync.mix_limits")  # the grid's copy from host memory to the card
     grid = torch.as_tensor(_ETA_GRID, dtype=F64, device=z.device)
     rho_grid = grid[None, :] / eta_factor[:, None]
     pt_grid, _ = _states_eos(phi_fn, z[:, None, :] * rho_grid[:, :, None])
@@ -638,6 +654,7 @@ def _mix_init(phi_q, phi_exact, z, p0, md3, incipient_is_vapor, stats):
     p0, limits = _mix_limits(phi_q, z, p0, md3, incipient_is_vapor)
 
     # -- branch NPT solves (lane 0 = liquid, lane 1 = vapor) ---------------
+    tracing.count("sync.mix_init")  # the signs' copy from host memory to the card
     branch_sign = torch.tensor([1.0, -1.0], dtype=F64, device=dev)
     lr_cap = torch.log(0.74 / eta_factor)[:, None]
     B = z.shape[0]
@@ -649,6 +666,7 @@ def _mix_init(phi_q, phi_exact, z, p0, md3, incipient_is_vapor, stats):
     n_npt = 0
     while True:
         active = (~done).any(1) & (it < _MAX_NPT_ITER)
+        tracing.count("sync.mix_init")
         if not bool(active.any()):
             break
         R = z[:, None, :] * torch.exp(lr)[:, :, None]
@@ -703,8 +721,8 @@ def _mix_init(phi_q, phi_exact, z, p0, md3, incipient_is_vapor, stats):
             ln_bt = torch.minimum(
                 torch.logsumexp(torch.clamp(mu_inc, -78.0, 78.0), -1), limits.ln_bulk_max
             )
-    if stats is not None:
-        stats.update(npt=n_npt, ss=_N_SS_WARMUP)
+    if stats is not None or tracing.on():
+        tracing.report(stats, "mix_vle", npt=n_npt, ss=_N_SS_WARMUP)
     return torch.cat([ln_i, ln_bt[:, None]], 1), limits, init_ok
 
 
@@ -752,6 +770,7 @@ def _mix_newton(phi_q, phi_exact, z, u0, limits: MixLimits):
     n_iter = 0
     while True:
         active = ~done & (it < _MAX_MIX_ITER)
+        tracing.count("sync.mix_newton")
         if not bool(active.any()):
             break
         e = torch.exp(u)
@@ -808,6 +827,7 @@ def _mix_newton(phi_q, phi_exact, z, u0, limits: MixLimits):
     return u, out_keep, n_iter
 
 
+@tracing.traced("solver", rows_arg=2)
 @torch.no_grad()
 def mix_vle(phi_q, phi_exact, z, p0, md3, incipient_is_vapor: bool, u0_init=None,
             stats=None):
@@ -836,14 +856,14 @@ def mix_vle(phi_q, phi_exact, z, p0, md3, incipient_is_vapor: bool, u0_init=None
         # a NaN warm state would poison its row's Newton; park such rows at
         # a harmless interior point and let init_ok fail them
         u0 = torch.where(init_ok[:, None], u0, 0.0)
-        if stats is not None:
-            stats.update(npt=0, ss=0)
+        if stats is not None or tracing.on():
+            tracing.report(stats, "mix_vle", npt=0, ss=0)
     else:
         u0, limits, init_ok = _mix_init(phi_q, phi_exact, z, p0, md3,
                                         incipient_is_vapor, stats)
     u, out, n_newton = _mix_newton(phi_q, phi_exact, z, u0, limits)
-    if stats is not None:
-        stats.update(newton=n_newton)
+    if stats is not None or tracing.on():
+        tracing.report(stats, "mix_vle", newton=n_newton)
 
     e_u = torch.exp(u)
     rho_inc = e_u[:, :n]

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import feos_tpu_torch as ft
+from feos_tpu_torch import tracing
 from feos_tpu.models import pcsaft_pure as jpure
 from feos_tpu.ops.derivatives import value_and_2derivs as jvalue_and_2derivs
 from feos_tpu_torch.kernels.phi_d2 import max_scaled_error, phi_d2, phi_d2_plain
@@ -339,9 +340,10 @@ def test_phi_d2_work_counts_each_row(count_ops, case):
 
 def test_cpu_path_counts_no_launches():
     params, temperature, rho = (_t(x) for x in _inputs())
-    before = dict(phi_d2.launches_by_k)
-    phi_d2(params, temperature, rho)
-    assert phi_d2.launches_by_k == before
+    with tracing.record() as rec:
+        phi_d2(params, temperature, rho)
+    assert not any(k.startswith("launch.phi_d2") for k in rec.counters)
+    assert rec.counters["calls.kernel.phi_d2"] == 1
 
 
 @pytest.mark.parametrize("entry", ["PcSaftPure", "PureParams.from_numpy"])

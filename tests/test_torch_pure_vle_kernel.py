@@ -22,6 +22,7 @@ import torch
 import feos_tpu_torch as ft
 from _torch_golden import vendored
 from _torch_host import gxx_build, ptr
+from feos_tpu_torch import tracing
 from feos_tpu_torch.solvers.vle import _ETA_GRID, pure_vle_plain
 
 RTOL = 1e-10
@@ -266,13 +267,12 @@ def test_scan_combine_matches_serial_scan(host, kind):
 def test_cpu_wrapper_takes_the_plain_path():
     """On CPU tensors ``pure_vle`` runs ``pure_vle_plain`` and counts no
     launch of the kernel."""
-    from feos_tpu_torch.kernels import pure_vle as kernel
-
     params, temperature = (torch.as_tensor(x) for x in ft.make_batch(8, seed=2))
-    before = kernel.pure_vle.launches
     stats = {}
-    got = ft.pure_vle(params, temperature, stats=stats)
+    with tracing.record() as rec:
+        got = ft.pure_vle(params, temperature, stats=stats)
     want = pure_vle_plain(params, temperature)
-    assert kernel.pure_vle.launches == before and "phi_d2_calls" in stats
+    assert "launch.pure_vle" not in rec.counters and rec.phi_evals_per_row() is None
+    assert rec.counters["calls.kernel.pure_vle"] == 1 and "phi_d2_calls" in stats
     for a, b in zip(got, want):
         assert torch.equal(a, b)
